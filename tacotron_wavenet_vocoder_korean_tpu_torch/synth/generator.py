@@ -1,0 +1,178 @@
+"""WaveNet generator: mel ``.npy`` -> waveform (counterpart of the JAX
+package's ``synth/generator.py``).
+
+Up to 8 ragged mels are silence-padded to the longest, upsampled, projected
+and vocoded together in ONE launch of the generation kernel; each wav is
+then trimmed back to ``frames * hop`` samples and decoded per input type.
+``wav_seed`` primes the sampler, teacher-forced, with the last receptive
+field of a seed waveform.  On a CPU device the kernel's plain twin runs.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import Config, load_config
+from ..convert import gc_enabled, params_from_npz, seeded_params
+from ..device import resolve_device
+from ..dsp.audio_io import save_wav
+from ..dsp.mulaw import inv_mulaw, mulaw
+from ..models.wavenet import Params, Upsampler, require_scalar_input
+from ..ops.wavenet_gen import incremental_generate_cuda, pack_params
+
+MAX_STREAMS = 8
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Hold the upsampler's convolutions and the lc projection to f32 for
+    the duration of a call: cuDNN runs f32 convolutions in TF32 by default
+    on Ampere and later cards, and a caller may have let cuBLAS do the same
+    for matmuls.  The caller's settings are restored on exit."""
+    conv, matmul = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def batch_mels(mels: Sequence[np.ndarray], pad_value: float
+               ) -> Tuple[np.ndarray, List[int]]:
+    """Stack ragged [F_i, M] mels into [B, F_max, M] (silence-padded) and
+    return the per-stream frame counts for post-trim."""
+    frames = [m.shape[0] for m in mels]
+    out = np.full((len(mels), max(frames), mels[0].shape[1]), pad_value,
+                  np.float32)
+    for i, m in enumerate(mels):
+        out[i, :m.shape[0]] = m
+    return out, frames
+
+
+def encode_seed_audio(cfg: Config, wav: np.ndarray, batch: int
+                      ) -> torch.Tensor:
+    """Raw float waveform -> the sampler's seed convention [B, T, 1],
+    mu-law companded when the model was trained on mu-law input."""
+    w = cfg.wavenet
+    require_scalar_input(w)
+    x = torch.from_numpy(np.asarray(wav, np.float32).reshape(-1))
+    if w.input_type == "mulaw":
+        x = mulaw(x, w.quantization_channels)
+    return x[None, :, None].expand(batch, -1, 1)
+
+
+class WaveNetGenerator:
+    """Holds the config, the converted parameters on ``device``, the packed
+    kernel layout and the upsampler."""
+
+    def __init__(self, cfg: Config, params: Params,
+                 device: Union[str, torch.device, None] = None):
+        require_scalar_input(cfg.wavenet)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.packed = pack_params(cfg.wavenet, self.params)
+        self.upsampler = Upsampler(cfg.wavenet).load_params(self.params).to(
+            self.device)
+        self.gc_enable = gc_enabled(cfg.wavenet)
+
+    @classmethod
+    def load(cls, weights: Optional[str], config: str,
+             device: Union[str, torch.device, None] = None,
+             init_seed: Optional[int] = None) -> "WaveNetGenerator":
+        """``config``: ``params.json``, a run dir or a ``*.ckpt.tar.gz``.
+        ``weights``: an ``.npz`` of JAX-named parameters; or ``None`` with
+        ``init_seed`` for seeded full-width weights."""
+        cfg = load_config(config)
+        if weights is not None:
+            params = params_from_npz(cfg.wavenet, weights)
+        elif init_seed is not None:
+            params = seeded_params(cfg.wavenet, init_seed)
+        else:
+            raise ValueError("give weights or init_seed")
+        return cls(cfg, params, device)
+
+    def _decode_samples(self, samples: np.ndarray) -> np.ndarray:
+        w = self.cfg.wavenet
+        if w.input_type == "mulaw":
+            return inv_mulaw(torch.from_numpy(samples),
+                             w.quantization_channels).numpy()
+        return samples
+
+    @torch.no_grad()
+    def generate(self, mel: Union[np.ndarray, Sequence[np.ndarray]],
+                 speaker_id: Union[int, Sequence[int], None] = None,
+                 seed: int = 0,
+                 wav_seed: Optional[np.ndarray] = None,
+                 deterministic: bool = False
+                 ) -> Union[np.ndarray, List[np.ndarray]]:
+        """mel [frames, num_mels], or a list of up to 8 ragged mels vocoded
+        in one kernel launch -> float waveform(s) [frames*hop].
+
+        ``seed`` seeds the ``torch.Generator`` of the sampling noise."""
+        single = not isinstance(mel, (list, tuple))
+        mels = [np.asarray(m, np.float32) for m in ([mel] if single else mel)]
+        if not 1 <= len(mels) <= MAX_STREAMS:
+            raise ValueError(f"1 to {MAX_STREAMS} mels per call, got "
+                             f"{len(mels)}")
+        a = self.cfg.audio
+        hop = a.hop_size
+        pad_value = -a.max_abs_value if a.symmetric_mels else 0.0
+        batch, frames = batch_mels(mels, pad_value)
+        dev = self.device
+
+        gc = None
+        if self.gc_enable:
+            ids = np.broadcast_to(
+                np.asarray(0 if speaker_id is None else speaker_id),
+                (len(mels),)).copy()
+            gc = self.params["gc_embedding"][torch.as_tensor(ids, device=dev)]
+
+        seed_audio = None
+        total = batch.shape[1] * hop
+        if wav_seed is not None:
+            # Only the receptive field of the seed can reach the output; keep
+            # at least one free-running step.
+            keep = min(self.cfg.wavenet.receptive_field, total - 1)
+            seed_audio = encode_seed_audio(self.cfg, wav_seed, len(mels))
+            seed_audio = seed_audio[:, -keep:].contiguous().to(dev)
+
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with _no_tf32():
+            lc = self.upsampler(torch.from_numpy(batch).to(dev))
+            samples = incremental_generate_cuda(
+                self.cfg.wavenet, self.packed, lc, generator=gen, gc=gc,
+                seed_audio=seed_audio, deterministic=deterministic)
+        samples = samples.cpu().numpy()
+        wavs = [self._decode_samples(samples[i, :frames[i] * hop])
+                for i in range(len(mels))]
+        return wavs[0] if single else wavs
+
+    def generate_to_file(self, mel_path: Union[str, Sequence[str]],
+                         out_path: Union[str, Sequence[str]],
+                         speaker_id: Optional[int] = None,
+                         wav_seed: Optional[np.ndarray] = None
+                         ) -> List[str]:
+        mel_paths = [mel_path] if isinstance(mel_path, str) else list(mel_path)
+        out_paths = [out_path] if isinstance(out_path, str) else list(out_path)
+        if len(mel_paths) != len(out_paths):
+            raise ValueError("one output path per mel")
+        mels = [np.load(p) for p in mel_paths]
+        t0 = time.perf_counter()
+        wavs = self.generate(mels, speaker_id=speaker_id, wav_seed=wav_seed)
+        dt = time.perf_counter() - t0
+        sr = self.cfg.audio.sample_rate
+        n = sum(len(w) for w in wavs)
+        print(f"generated {n} samples ({len(wavs)} stream(s)) on "
+              f"{self.device} in {dt:.2f}s ({n / dt / sr:.2f}x realtime "
+              f"aggregate)")
+        for w, p in zip(wavs, out_paths):
+            save_wav(w, p, sr)
+        return out_paths
