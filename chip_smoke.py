@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build the generation kernel,
-hold it against its plain twin at full width, drive the vocoder serving path
-(mel -> wav) through ``WaveNetGenerator``, and time the kernel.
+hold each of its four variants (mixture-of-logistics or 256-way softmax
+head, f32 or bf16 weights) against its plain twin at full width, drive the
+vocoder serving path (mel -> wav) through ``WaveNetGenerator``, and time
+the kernel.
 
     python3 chip_smoke.py
 
@@ -9,14 +11,16 @@ Needs one CUDA card and ``nvcc``; exits non-zero, printing no result, when
 either is missing or when this file stands outside the repository.  Weights
 are random, made from a seed at the full width of the repository's
 ``wn_moon`` WaveNet (its ``params.json`` is read from the checkpoint
-tarball); the requests are the committed Tacotron mels
-``samples/both_r2/{0,1,2,3}.mel.npy``.  Wavs go to a temporary directory
-that is removed at the end.  The last line is
+tarball): as it is (raw input, MoL head), and switched to ``mulaw-quantize``
+(one-hot input, softmax head over 256 classes).  The requests are the
+committed Tacotron mels ``samples/both_r2/{0,1,2,3}.mel.npy``.  Wavs go to
+a temporary directory that is removed at the end.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -34,23 +38,48 @@ TPU_KERNEL = "tacotron_wavenet_vocoder_korean_tpu/ops/wavenet_pallas.py:510"
 MELS = [os.path.join(REPO, "samples", "both_r2", f"{i}.mel.npy")
         for i in range(4)]
 CONFIG = os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz")
-# Published H100 SXM peaks at the 700 W limit: HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores (the kernel's arithmetic is plain f32 FMA).
+# Published H100 SXM peaks at the 700 W limit: HBM3 bytes/s; f32 FLOP/s
+# outside the tensor cores (the f32 variants' arithmetic); bf16 FLOP/s of
+# the tensor cores (bf16 products summed in f32, the bf16 variants' work).
 HBM_BYTES_S = 3.35e12
-F32_FLOPS_S = 67e12
+PEAK_FLOPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
-# Kernel against its plain twin.  Both run the same f32 math; sums are taken
-# in another order, so a step differs by ~1e-6.  A step may differ by more
-# only where two mixture logits (or Gumbel scores) tie to within that
+# Kernel against its plain twin.  Both run the same math; sums are taken in
+# another order, so a step differs by ~1e-6 in f32.  A step may differ by
+# more only where two mixture logits (or Gumbel scores) tie to within that
 # rounding and the two sides pick different components: isolated steps.
 STEP_TOL = 1e-4          # all steps but near-ties
 NEAR_TIE_TOL = 1e-3      # a step above this counts as a near-tie flip
 MAX_TIE_SHARE = 0.005    # at most 0.5% of steps may be flips
 FREE_RUN_TOL = 1e-3      # free-running: rounding compounds through feedback
+# Softmax head, f32: the share of steps whose class must agree; only a
+# near-tie of two scores (within ~1e-7) may flip a class.
+CLASS_AGREE_F32 = 0.999
+# bf16 weights: both sides round every activation to bf16 before its
+# product.  A sum taken in another order can land an activation on the
+# other side of a bf16 rounding step (2^-8 relative); the ring histories
+# carry that into later steps, where it crosses further rounding steps, so
+# over ~1,000 steps the kernel and its twin part about as far as bf16 parts
+# from f32.  Bounds: over the whole span, the kernel differs from its twin
+# no more than two independent bf16 roundings of the f32 function would
+# (BF16_RATIO times the twin's own distance from the f32 kernel, which
+# equals the f32 twin to ~1e-7: the union bound); over the first
+# BF16_EARLY steps, before much has been carried, MoL samples within
+# BF16_EARLY_TOL.
+BF16_RATIO = 2.0
+BF16_EARLY, BF16_EARLY_TOL = 64, 1e-3
+BF16_JUMP = 1e-2         # a MoL step above this counts as a component flip
+CLASS_AGREE_BF16 = 0.95  # and an absolute floor for the softmax head
 # Two-sample Kolmogorov-Smirnov bound at alpha = 0.001 for n = m:
-# 1.95 * sqrt(2 / n).  Teacher-forced logits do not depend on the draws, so
-# the pooled samples are independent draws from one distribution.
+# 1.95 * sqrt(2 / n); and the chi-square homogeneity test of two class
+# histograms at the same alpha.  Teacher-forced logits do not depend on the
+# draws, so each side's draws are independent, step by step from the same
+# distributions; pooling steps of different distributions only shrinks the
+# statistics' variance, so both tests stay conservative.
 KS_ALPHA_COEF = 1.95
+ALPHA = 0.001
+# Timing: the plain twin is timed over a span of this many steps.
+SPAN = 512
 
 
 def log(msg: str) -> None:
@@ -80,12 +109,75 @@ def compare(name, got, want, tol=STEP_TOL, max_share=MAX_TIE_SHARE):
     return float(err.max())
 
 
+def compare_classes(name, got, want, min_agree):
+    agree = float((got == want).float().mean())
+    err = float((got - want).abs().max())
+    log(f"  {name}: class agreement {agree:.5f} (bound >= {min_agree}), "
+        f"max_abs_err {err:g}, {len(torch.unique(got))} distinct classes")
+    if not (torch.equal(got, got.round()) and float(got.min()) >= 0
+            and float(got.max()) < 256):
+        raise AssertionError(f"{name}: kernel output is not class ids")
+    if agree < min_agree:
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin")
+    return err, agree
+
+
+def compare_bf16(name, k16, t16, k32, classes):
+    """bf16 kernel ``k16`` against its bf16 twin ``t16``, measured against
+    the twin's own distance from the f32 kernel ``k32`` (see BF16_RATIO).
+    MoL: mean abs error and share of component flips; softmax: share of
+    differing classes.  Returns (max abs error, class agreement or None)."""
+    if classes:
+        d_kt = float((k16 != t16).float().mean())
+        d_tf = float((t16 != k32).float().mean())
+        agree = 1.0 - d_kt
+        log(f"  {name}: classes differ kernel/twin {d_kt:.5f} (bound <= "
+            f"{BF16_RATIO:g} x {d_tf:.5f}, twin bf16/f32; agreement >= "
+            f"{CLASS_AGREE_BF16}), {len(torch.unique(k16))} distinct classes")
+        ok = d_kt <= BF16_RATIO * d_tf and agree >= CLASS_AGREE_BF16
+    else:
+        e_kt, e_tf = (k16 - t16).abs(), (t16 - k32).abs()
+        early = float(e_kt[:, :BF16_EARLY].max())
+        mean_kt, mean_tf = float(e_kt.mean()), float(e_tf.mean())
+        jump_kt = float((e_kt > BF16_JUMP).float().mean())
+        jump_tf = float((e_tf > BF16_JUMP).float().mean())
+        agree = None
+        log(f"  {name}: first {BF16_EARLY} steps max_abs_err {early:.3e} "
+            f"(bound {BF16_EARLY_TOL:g}); mean abs err kernel/twin "
+            f"{mean_kt:.3e} (bound <= {BF16_RATIO:g} x {mean_tf:.3e}, twin "
+            f"bf16/f32); flips (>{BF16_JUMP:g}) {jump_kt:.5f} (bound <= "
+            f"{BF16_RATIO:g} x {jump_tf:.5f}); max_abs_err "
+            f"{float(e_kt.max()):.3e}")
+        ok = (early <= BF16_EARLY_TOL and mean_kt <= BF16_RATIO * mean_tf
+              and jump_kt <= BF16_RATIO * jump_tf)
+    if not bool(torch.isfinite(k16).all()) or not ok:
+        raise AssertionError(f"{name}: bf16 kernel disagrees with its twin")
+    return float((k16 - t16).abs().max()), agree
+
+
 def ks_statistic(a, b) -> float:
     a, b = np.sort(a), np.sort(b)
     grid = np.concatenate([a, b])
     fa = np.searchsorted(a, grid, side="right") / len(a)
     fb = np.searchsorted(b, grid, side="right") / len(b)
     return float(np.abs(fa - fb).max())
+
+
+def chi2_two_sample(a, b, n_classes):
+    """Chi-square homogeneity statistic of two equal-size samples of class
+    ids, classes seen fewer than 10 times in all pooled into one bin;
+    returns (statistic, degrees of freedom, bound at ALPHA)."""
+    from scipy.stats import chi2
+    ca = np.bincount(a.astype(np.int64), minlength=n_classes)
+    cb = np.bincount(b.astype(np.int64), minlength=n_classes)
+    small = (ca + cb) < 10
+    ca = np.append(ca[~small], ca[small].sum())
+    cb = np.append(cb[~small], cb[small].sum())
+    keep = (ca + cb) > 0
+    ca, cb = ca[keep], cb[keep]
+    stat = float(np.sum((ca - cb) ** 2 / (ca + cb)))
+    dof = len(ca) - 1
+    return stat, dof, float(chi2.ppf(1 - ALPHA, dof))
 
 
 def cuda_ms(fn, reps: int = 1) -> float:
@@ -114,12 +206,14 @@ def main() -> int:
         seeded_params)
     from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
         save_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.mulaw import (
+        inv_mulaw_quantize, mulaw_quantize)
     from tacotron_wavenet_vocoder_korean_tpu_torch.models.wavenet import (
         Upsampler)
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops import build
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
-        generate_bytes, generate_flops, generate_plain, pack_params,
-        precompute_lc_proj, wavenet_generate)
+        generate_bytes, generate_flops, generate_plain, kernel_variant,
+        pack_params, precompute_lc_proj, wavenet_generate)
     from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
         WaveNetGenerator)
 
@@ -127,6 +221,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
 
     with phase("device"):
         smi = subprocess.run(
@@ -142,22 +237,33 @@ def main() -> int:
 
     cfg = load_config(CONFIG)
     w = cfg.wavenet
+    cfg_q = dataclasses.replace(cfg, wavenet=dataclasses.replace(
+        w, input_type="mulaw-quantize", scalar_input=False,
+        out_channels=w.quantization_channels))
+    wq = cfg_q.wavenet
     params = seeded_params(w, seed=0, device=dev)
-    packed = pack_params(w, params)
-    up = Upsampler(w).load_params(params).to(dev)
+    params_q = seeded_params(wq, seed=0, device=dev)
+    packs = {}
+    for p, c in ((params, w), (params_q, wq)):
+        for dt in (f32, bf16):
+            pk = pack_params(c, p, dt)
+            packs[kernel_variant(pk)] = pk
+    ups = {"mol": Upsampler(w).load_params(params).to(dev),
+           "softmax": Upsampler(wq).load_params(params_q).to(dev)}
     mels = [np.load(p).astype(np.float32) for p in MELS]
-    nr = w.out_channels // 3
+    nr, Q = w.out_channels // 3, wq.quantization_channels
     log(f"  wn_moon width: L={len(w.dilations)} R={w.residual_channels} "
-        f"D={w.dilation_channels} S={w.skip_channels} C={w.out_channels} "
-        f"W={w.initial_filter_width}")
+        f"D={w.dilation_channels} S={w.skip_channels}; MoL head "
+        f"C={w.out_channels} W={w.initial_filter_width}; softmax head "
+        f"Q={Q} W={wq.filter_width}")
 
-    def lc_proj_for(B, T):
+    def lc_proj_for(variant, B, T):
         f = -(-T // cfg.audio.hop_size)
         mel = np.stack([np.resize(mels[b % 4], (f, mels[0].shape[1]))
                         for b in range(B)])
         with torch.no_grad():
-            lc = up(torch.from_numpy(mel).to(dev))[:, :T]
-            return precompute_lc_proj(packed, lc)
+            lc = ups[variant.split("-")[0]](torch.from_numpy(mel).to(dev))
+            return precompute_lc_proj(packs[variant], lc[:, :T])
 
     def prime_signal(B, T, seed):
         rng = np.random.default_rng(seed)
@@ -167,17 +273,24 @@ def main() -> int:
             (T, B))
         return torch.from_numpy(x.astype(np.float32)).to(dev).contiguous()
 
-    errors = {}
-    with phase("kernel vs plain twin, full width, B=4"), torch.no_grad():
+    def prime_classes(B, T, seed):
+        return mulaw_quantize(prime_signal(B, T, seed), Q).float()
+
+    errors = {v: [] for v in packs}
+    agreement = {}
+    with phase("MoL head, f32: kernel vs plain twin, full width, B=4"), \
+            torch.no_grad():
+        packed = packs["mol-float32"]
         B, T = 4, 2048
-        proj = lc_proj_for(B, T)
+        proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 1)
         k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
                              prime_len=T)
         p = generate_plain(packed, proj, deterministic=True, primed=primed,
                            prime_len=T)
         torch.cuda.synchronize()
-        errors["a"] = compare("(a) deterministic, teacher-forced 2048", k, p)
+        errors["mol-float32"].append(compare(
+            "(a) deterministic, teacher-forced 2048", k, p))
 
         proj_b = proj[:, :256].contiguous()
         k = wavenet_generate(packed, proj_b, deterministic=True)
@@ -193,11 +306,11 @@ def main() -> int:
                              prime_len=T)
         p = generate_plain(packed, proj, noise=noise, primed=primed,
                            prime_len=T)
-        errors["c"] = compare("(c) stochastic, same noise, teacher-forced "
-                              "2048", k, p)
+        errors["mol-float32"].append(compare(
+            "(c) stochastic, same noise, teacher-forced 2048", k, p))
 
         B, T = 8, 4096
-        proj = lc_proj_for(B, T)
+        proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 3)
         k = wavenet_generate(packed, proj,
                              generator=torch.Generator(dev).manual_seed(4),
@@ -214,27 +327,131 @@ def main() -> int:
             raise AssertionError("(d) Philox samples differ in distribution")
         del proj, primed, k, p
 
+    with phase("softmax head, f32: kernel vs plain twin, full width, B=4"), \
+            torch.no_grad():
+        packed = packs["softmax-float32"]
+        B, T = 4, 1024
+        proj = lc_proj_for("softmax-float32", B, T)
+        primed = prime_classes(B, T, 11)
+        k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
+                             prime_len=T)
+        p = generate_plain(packed, proj, deterministic=True, primed=primed,
+                           prime_len=T)
+        err, agree_a = compare_classes(
+            "(a) deterministic, teacher-forced 1024", k, p, CLASS_AGREE_F32)
+        errors["softmax-float32"].append(err)
+
+        proj_b = proj[:, :256].contiguous()
+        k = wavenet_generate(packed, proj_b, deterministic=True)
+        p = generate_plain(packed, proj_b, deterministic=True)
+        compare_classes("(b) deterministic, free-running 256", k, p, 1.0)
+        if len(torch.unique(k)) < 2:
+            raise AssertionError("(b) free-running class stream is constant")
+
+        noise = torch.rand(T, B, Q, device=dev,
+                           generator=torch.Generator(dev).manual_seed(12))
+        k = wavenet_generate(packed, proj, noise=noise, primed=primed,
+                             prime_len=T, temperature=0.7)
+        p = generate_plain(packed, proj, noise=noise, primed=primed,
+                           prime_len=T, temperature=0.7)
+        err, agree_c = compare_classes(
+            "(c) stochastic T=0.7, same noise, teacher-forced 1024", k, p,
+            CLASS_AGREE_F32)
+        errors["softmax-float32"].append(err)
+        agreement["softmax-float32"] = min(agree_a, agree_c)
+
+        B, T = 8, 4096
+        proj = lc_proj_for("softmax-float32", B, T)
+        primed = prime_classes(B, T, 13)
+        k = wavenet_generate(packed, proj,
+                             generator=torch.Generator(dev).manual_seed(14),
+                             primed=primed, prime_len=T)
+        p = generate_plain(packed, proj,
+                           generator=torch.Generator(dev).manual_seed(15),
+                           primed=primed, prime_len=T)
+        stat, dof, bound = chi2_two_sample(k.cpu().numpy().ravel(),
+                                           p.cpu().numpy().ravel(), Q)
+        log(f"  (d) Philox vs torch.Generator, 8 x 4096 classes "
+            f"teacher-forced: chi2={stat:.1f} on {dof} dof (bound {bound:.1f}"
+            f" at alpha={ALPHA}); distinct classes kernel "
+            f"{len(torch.unique(k))} plain {len(torch.unique(p))}")
+        if not stat < bound:
+            raise AssertionError("(d) Philox classes differ in distribution")
+        del proj, primed, noise, k, p
+
+    with phase("bf16 weights: kernel vs bf16 twin, full width, B=4"), \
+            torch.no_grad():
+        B, T = 4, 1024
+        signals = {"mol": prime_signal(B, T, 21),
+                   "softmax": prime_classes(B, T, 22)}
+        for head, primed in signals.items():
+            proj = lc_proj_for(f"{head}-bfloat16", B, T)
+            run = lambda fn, dt: fn(packs[f"{head}-{dt}"], proj,
+                                    deterministic=True, primed=primed,
+                                    prime_len=T)
+            k16 = run(wavenet_generate, "bfloat16")
+            t16 = run(generate_plain, "bfloat16")
+            k32 = run(wavenet_generate, "float32")
+            err, agree = compare_bf16(
+                f"{head}, deterministic, teacher-forced {T}", k16, t16, k32,
+                classes=head == "softmax")
+            errors[f"{head}-bfloat16"].append(err)
+            if agree is not None:
+                agreement[f"{head}-bfloat16"] = agree
+            a, b = k16, k32
+            if head == "softmax":
+                log(f"  softmax drift, bf16 kernel vs f32 kernel: same class "
+                    f"{float((a == b).float().mean()):.5f}")
+                a, b = inv_mulaw_quantize(a, Q), inv_mulaw_quantize(b, Q)
+            a, b = a.cpu().numpy().ravel(), b.cpu().numpy().ravel()
+            corr = float(np.corrcoef(a, b)[0, 1])
+            rel = float(np.abs(a - b).mean() / (np.abs(b).mean() + 1e-8))
+            log(f"  {head} drift, bf16 kernel vs f32 kernel"
+                f"{' (decoded)' if head == 'softmax' else ''}: corr "
+                f"{corr:.5f}, mean relative drift {rel:.5f} (printed, not "
+                "bounded)")
+        del proj, signals, primed, k16, t16, k32
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         with phase("main path: WaveNetGenerator on the card"):
             gen = WaveNetGenerator(cfg, params, device="cuda")
+            gen32 = WaveNetGenerator(cfg, params, device="cuda",
+                                     weight_dtype=f32)
+            gen_q = WaveNetGenerator(cfg_q, params_q, device="cuda")
+            gen_q32 = WaveNetGenerator(cfg_q, params_q, device="cuda",
+                                       weight_dtype=f32)
+            if (gen.weight_dtype, gen_q.weight_dtype) != (bf16, bf16):
+                raise AssertionError("the card's default weights are not bf16")
             hop, sr = cfg.audio.hop_size, cfg.audio.sample_rate
-            requests = [("batched 4 mels", mels, None),
-                        ("single 0.mel", mels[0], None)]
+            # (name, generator, mel(s), wav_seed from request, temperature)
+            requests = [
+                ("raw bf16: batched 4 mels", gen, mels, None, 1.0),
+                ("raw bf16: single 0.mel", gen, mels[0], None, 1.0),
+                ("raw bf16: wav_seed 1.mel", gen, mels[1],
+                 "raw bf16: single 0.mel", 1.0),
+                ("raw f32: single 0.mel", gen32, mels[0], None, 1.0),
+                ("mulaw-quantize bf16: 2.mel at T=0.7", gen_q, mels[2], None,
+                 0.7),
+                ("mulaw-quantize bf16: wav_seed 3.mel", gen_q, mels[3],
+                 "mulaw-quantize bf16: 2.mel at T=0.7", 1.0),
+                ("mulaw-quantize f32: 2.mel at T=0.7", gen_q32, mels[2], None,
+                 0.7),
+            ]
             results = {}
             wavenet_generate.launches = 0
-            launches = 0
-            for i, (name, mel, seed_wav) in enumerate(
-                    requests + [("wav_seed 1.mel", mels[1], "from request 2")]):
-                if seed_wav is not None:
-                    seed_wav = results["single 0.mel"][0][:hop * 20]
+            wavenet_generate.variant_launches.clear()
+            for i, (name, g, mel, seed_from, temp) in enumerate(requests):
+                seed_wav = (None if seed_from is None
+                            else results[seed_from][0][:hop * 20])
+                before = wavenet_generate.launches
                 t0 = time.perf_counter()
-                out = gen.generate(mel, seed=i, wav_seed=seed_wav)
+                out = g.generate(mel, seed=i, wav_seed=seed_wav,
+                                 temperature=temp)
                 dt = time.perf_counter() - t0
                 wavs = out if isinstance(out, list) else [out]
                 mlist = mel if isinstance(mel, list) else [mel]
-                launches += 1
-                if wavenet_generate.launches != launches:
+                if wavenet_generate.launches != before + 1:
                     raise AssertionError(f"{name}: kernel not launched once")
                 for wav, m in zip(wavs, mlist):
                     if wav.shape != (m.shape[0] * hop,):
@@ -252,51 +469,64 @@ def main() -> int:
                     f"{dt:.3f}s = {n / dt:.0f} samples/s = "
                     f"{n / dt / sr:.3f}x realtime at {sr} Hz "
                     f"(std {np.mean([x.std() for x in wavs]):.4f}) [{smi}]")
-            main_launches = wavenet_generate.launches
+            main_launches = dict(wavenet_generate.variant_launches)
+            log(f"  launches on the main path: {main_launches}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    timing = {}
     with phase("kernel timing at the main path's shapes"), torch.no_grad():
         B = len(mels)
         T = max(m.shape[0] for m in mels) * cfg.audio.hop_size
-        proj = lc_proj_for(B, T)
-        gen_t = torch.Generator(dev).manual_seed(6)
-        ms = cuda_ms(lambda: wavenet_generate(packed, proj, generator=gen_t))
-        # The twin launches hundreds of small ops per sample: it is timed on
-        # a 512-step span of the same streams, and the kernel on that span
-        # too, so the two times compare directly.
-        span = 512
-        proj_s = proj[:, :span].contiguous()
-        plain_ms = cuda_ms(lambda: generate_plain(packed, proj_s,
-                                                  generator=gen_t))
-        span_ms = cuda_ms(lambda: wavenet_generate(packed, proj_s,
-                                                   generator=gen_t))
-        flops = generate_flops(packed, B, T)
-        nbytes = generate_bytes(packed, B, T)
-        t_ops, t_bytes = flops / F32_FLOPS_S * 1e3, nbytes / HBM_BYTES_S * 1e3
-        log(f"  wavenet_generate B={B} T={T}: {ms:.1f} ms "
-            f"({B * T / ms * 1e3:.0f} samples/s aggregate); bound "
-            f"{max(t_ops, t_bytes):.2f} ms ({flops:.3e} FLOP, {nbytes:.3e} B)"
-            f"; {span} steps: kernel {span_ms:.2f} ms, plain twin "
-            f"{plain_ms:.1f} ms [{smi}]")
+        for v, packed in packs.items():
+            temp = 0.7 if v.startswith("softmax") else 1.0
+            proj = lc_proj_for(v, B, T)
+            gen_t = torch.Generator(dev).manual_seed(6)
+            ms = cuda_ms(lambda: wavenet_generate(
+                packed, proj, generator=gen_t, temperature=temp))
+            # The twin launches hundreds of small ops per sample: it is
+            # timed on a SPAN-step span of the same streams, and the kernel
+            # on that span too, so the two times compare directly.
+            proj_s = proj[:, :SPAN].contiguous()
+            del proj
+            plain_ms = cuda_ms(lambda: generate_plain(
+                packed, proj_s, generator=gen_t, temperature=temp))
+            span_ms = cuda_ms(lambda: wavenet_generate(
+                packed, proj_s, generator=gen_t, temperature=temp))
+            flops = generate_flops(packed, B, T)
+            nbytes = generate_bytes(packed, B, T)
+            t_ops = flops / PEAK_FLOPS_S[packed["w_tap"].dtype] * 1e3
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            timing[v] = dict(ms=ms, plain_ms=plain_ms, span_ms=span_ms,
+                             t_ops=t_ops, t_bytes=t_bytes)
+            log(f"  wavenet_generate[{v}] B={B} T={T}: {ms:.1f} ms "
+                f"({ms / T * 1e3:.1f} us per step, {B * T / ms * 1e3:.0f} "
+                f"samples/s aggregate); bound {max(t_ops, t_bytes):.2f} ms "
+                f"({flops:.3e} FLOP, {nbytes:.3e} B); {SPAN} steps: kernel "
+                f"{span_ms:.2f} ms, plain twin {plain_ms:.1f} ms [{smi}]")
 
-    kernels = [{
-        "name": "wavenet_generate",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/wavenet_gen.cu",
-        "replaces": TPU_KERNEL,
-        "launches": main_launches,
-        "max_abs_err": max(errors.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "plain_steps": span,
-        "ms_plain_steps": span_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]
-    if main_launches < 1:
-        raise AssertionError("the main path did not launch the kernel")
+    kernels = []
+    for v, t in timing.items():
+        if main_launches.get(v, 0) < 1:
+            raise AssertionError(f"the main path did not launch {v}")
+        entry = {
+            "name": f"wavenet_generate[{v}]",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/wavenet_gen.cu",
+            "replaces": TPU_KERNEL,
+            "launches": main_launches[v],
+            "max_abs_err": max(errors[v]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "plain_steps": SPAN,
+            "ms_plain_steps": t["span_ms"],
+            "bound_ms": max(t["t_ops"], t["t_bytes"]),
+            "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
+            "library_ms": None,
+        }
+        if v in agreement:
+            entry["class_agreement"] = agreement[v]
+        kernels.append(entry)
     log(f"total wall time {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

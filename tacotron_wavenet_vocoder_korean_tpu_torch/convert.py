@@ -27,7 +27,9 @@ def param_shapes(cfg: WaveNetConfig) -> Dict[str, Tuple[int, ...]]:
     """Every parameter the generation path reads, with its shape."""
     R, D, S = (cfg.residual_channels, cfg.dilation_channels,
                cfg.skip_channels)
-    C, G, M = cfg.out_channels, cfg.gc_channels, cfg.local_condition_channels
+    G, M = cfg.gc_channels, cfg.local_condition_channels
+    # The softmax head has one logit per class (the JAX model's n_out).
+    C = cfg.out_channels if cfg.scalar_input else cfg.quantization_channels
     cin = 1 if cfg.scalar_input else cfg.quantization_channels
     width = cfg.initial_filter_width if cfg.scalar_input else cfg.filter_width
     shapes = {"causal_kernel": (width, cin, R)}
@@ -114,9 +116,10 @@ def params_from_npz(cfg: WaveNetConfig, path: str,
 def seeded_tree(cfg: WaveNetConfig, seed: int) -> Dict[str, np.ndarray]:
     """Random full-width parameters in the JAX layout, from a numpy seed, at
     flax's init scales (glorot-normal stack, lecun-normal post and
-    upsampler kernels, zero biases).  Two changes keep random weights in a
-    useful range: the output layer is scaled down and the log-scale biases
-    start at -3, so the sampled signal is neither silent nor clipped."""
+    upsampler kernels, zero biases).  For the mixture-of-logistics head two
+    changes keep random weights in a useful range: the output layer is
+    scaled down and the log-scale biases start at -3, so the sampled signal
+    is neither silent nor clipped.  The softmax head keeps flax's scales."""
     rng = np.random.default_rng(seed)
     out = {}
     for k, shape in param_shapes(cfg).items():
@@ -131,10 +134,11 @@ def seeded_tree(cfg: WaveNetConfig, seed: int) -> Dict[str, np.ndarray]:
             std = np.sqrt(2.0 / (fan_in + shape[-1] * rf))
             v = rng.standard_normal(shape) * std
         out[k] = v.astype(np.float32)
-    nr = cfg.out_channels // 3
-    out["post_2/kernel"] *= 0.1
-    if cfg.use_biases:
-        out["post_2/bias"][2 * nr:] = -3.0
+    if cfg.scalar_input:
+        nr = cfg.out_channels // 3
+        out["post_2/kernel"] *= 0.1
+        if cfg.use_biases:
+            out["post_2/bias"][2 * nr:] = -3.0
     return out
 
 

@@ -7,8 +7,9 @@
 Weights come from ``--weights`` (an ``.npz`` of JAX-named parameters) or,
 with ``--init_seed N``, are made at full width from a seed.  ``--config``
 names the ``params.json`` (or a checkpoint tarball holding it).  Up to 8
-``--mel`` inputs are vocoded per kernel launch.  Runs on the GPU unless
-``--device cpu`` is given.
+``--mel`` inputs are vocoded per kernel launch.  ``--temperature`` scales
+the softmax head of a ``mulaw-quantize`` model.  Runs on the GPU (bf16
+weights) unless ``--device cpu`` (f32 weights) is given.
 """
 from __future__ import annotations
 
@@ -48,14 +49,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--wav_seed", default=None,
                    help="wav that primes generation (teacher-forced)")
     p.add_argument("--temperature", type=float, default=1.0,
-                   help="softmax temperature; only 1.0 until the "
-                   "mulaw-quantize softmax head is ported")
+                   help="softmax temperature (mulaw-quantize models only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.temperature != 1.0:
-        raise NotImplementedError(
-            "--temperature applies to the mulaw-quantize softmax head, which "
-            "is not ported yet")
 
     gen = WaveNetGenerator.load(args.weights, args.config, args.device,
                                 init_seed=args.init_seed)
@@ -65,7 +61,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     for lo in range(0, len(args.mel), MAX_STREAMS):
         mels, dests = args.mel[lo:lo + MAX_STREAMS], outs[lo:lo + MAX_STREAMS]
         gen.generate_to_file(mels, dests, speaker_id=args.gc_id,
-                             wav_seed=wav_seed)
+                             wav_seed=wav_seed, temperature=args.temperature)
         for m, o in zip(mels, dests):
             print(f"{m} -> {o}")
 

@@ -8,9 +8,7 @@ is held against.
 
 Parameters are a flat dict of tensors keyed by the JAX package's flat
 names, nested flax names joined by ``/`` (``post_1/kernel``,
-``upsampler/upsample_0/kernel``); ``convert.py`` builds it.  Only the
-scalar-input heads (``raw``, ``mulaw``) are carried: ``mulaw-quantize``
-raises ``NotImplementedError``.
+``upsampler/upsample_0/kernel``); ``convert.py`` builds it.
 """
 from __future__ import annotations
 
@@ -23,13 +21,6 @@ import torch.nn.functional as F
 from ..config import WaveNetConfig
 
 Params = Dict[str, torch.Tensor]
-
-
-def require_scalar_input(cfg: WaveNetConfig) -> None:
-    if not cfg.scalar_input:
-        raise NotImplementedError(
-            f"input_type={cfg.input_type!r} (one-hot input, softmax head) is "
-            "not ported yet; only 'raw' and 'mulaw' are supported")
 
 
 def wn_weight(v: np.ndarray, g: np.ndarray) -> np.ndarray:

@@ -3,9 +3,15 @@ package's ``synth/generator.py``).
 
 Up to 8 ragged mels are silence-padded to the longest, upsampled, projected
 and vocoded together in ONE launch of the generation kernel; each wav is
-then trimmed back to ``frames * hop`` samples and decoded per input type.
+then trimmed back to ``frames * hop`` samples and decoded per input type
+(mu-law class ids through ``inv_mulaw_quantize`` for ``mulaw-quantize``).
 ``wav_seed`` primes the sampler, teacher-forced, with the last receptive
-field of a seed waveform.  On a CPU device the kernel's plain twin runs.
+field of a seed waveform; ``temperature`` scales the softmax head.  On a
+CPU device the kernel's plain twin runs.
+
+Weights are served in bf16 on the GPU and in f32 on the CPU unless the
+caller picks a type, as the JAX generator serves the Pallas kernel's bf16
+default on an accelerator and its f32 scan sampler on the CPU.
 """
 from __future__ import annotations
 
@@ -20,8 +26,8 @@ from ..config import Config, load_config
 from ..convert import gc_enabled, params_from_npz, seeded_params
 from ..device import resolve_device
 from ..dsp.audio_io import save_wav
-from ..dsp.mulaw import inv_mulaw, mulaw
-from ..models.wavenet import Params, Upsampler, require_scalar_input
+from ..dsp.mulaw import inv_mulaw, inv_mulaw_quantize, mulaw, mulaw_quantize
+from ..models.wavenet import Params, Upsampler
 from ..ops.wavenet_gen import incremental_generate_cuda, pack_params
 
 MAX_STREAMS = 8
@@ -56,29 +62,45 @@ def batch_mels(mels: Sequence[np.ndarray], pad_value: float
     return out, frames
 
 
+def resolve_weight_dtype(device: torch.device,
+                         weight_dtype: Optional[torch.dtype] = None
+                         ) -> torch.dtype:
+    """The weight type a generator serves with: ``weight_dtype`` if given,
+    else bf16 on a GPU and f32 on the CPU."""
+    if weight_dtype is not None:
+        return weight_dtype
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
 def encode_seed_audio(cfg: Config, wav: np.ndarray, batch: int
                       ) -> torch.Tensor:
-    """Raw float waveform -> the sampler's seed convention [B, T, 1],
-    mu-law companded when the model was trained on mu-law input."""
+    """Raw float waveform -> the sampler's seed convention: [B, T, 1]
+    samples, mu-law companded when the model was trained on mu-law input;
+    or, for ``mulaw-quantize``, [B, T, Q] one-hot mu-law classes."""
     w = cfg.wavenet
-    require_scalar_input(w)
     x = torch.from_numpy(np.asarray(wav, np.float32).reshape(-1))
     if w.input_type == "mulaw":
         x = mulaw(x, w.quantization_channels)
-    return x[None, :, None].expand(batch, -1, 1)
+    if w.scalar_input:
+        return x[None, :, None].expand(batch, -1, 1)
+    cls = mulaw_quantize(x, w.quantization_channels).long()
+    onehot = torch.nn.functional.one_hot(cls, w.quantization_channels)
+    return onehot.to(torch.float32)[None].expand(batch, -1, -1)
 
 
 class WaveNetGenerator:
     """Holds the config, the converted parameters on ``device``, the packed
-    kernel layout and the upsampler."""
+    kernel layout (matrices in ``weight_dtype``: by default bf16 on a GPU,
+    f32 on the CPU) and the upsampler."""
 
     def __init__(self, cfg: Config, params: Params,
-                 device: Union[str, torch.device, None] = None):
-        require_scalar_input(cfg.wavenet)
+                 device: Union[str, torch.device, None] = None,
+                 weight_dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.weight_dtype = resolve_weight_dtype(self.device, weight_dtype)
         self.params = {k: v.to(self.device) for k, v in params.items()}
-        self.packed = pack_params(cfg.wavenet, self.params)
+        self.packed = pack_params(cfg.wavenet, self.params, self.weight_dtype)
         self.upsampler = Upsampler(cfg.wavenet).load_params(self.params).to(
             self.device)
         self.gc_enable = gc_enabled(cfg.wavenet)
@@ -101,6 +123,9 @@ class WaveNetGenerator:
 
     def _decode_samples(self, samples: np.ndarray) -> np.ndarray:
         w = self.cfg.wavenet
+        if w.input_type == "mulaw-quantize":
+            return inv_mulaw_quantize(torch.from_numpy(samples),
+                                      w.quantization_channels).numpy()
         if w.input_type == "mulaw":
             return inv_mulaw(torch.from_numpy(samples),
                              w.quantization_channels).numpy()
@@ -111,12 +136,15 @@ class WaveNetGenerator:
                  speaker_id: Union[int, Sequence[int], None] = None,
                  seed: int = 0,
                  wav_seed: Optional[np.ndarray] = None,
+                 temperature: float = 1.0,
                  deterministic: bool = False
                  ) -> Union[np.ndarray, List[np.ndarray]]:
         """mel [frames, num_mels], or a list of up to 8 ragged mels vocoded
         in one kernel launch -> float waveform(s) [frames*hop].
 
-        ``seed`` seeds the ``torch.Generator`` of the sampling noise."""
+        ``seed`` seeds the ``torch.Generator`` of the sampling noise.
+        ``temperature`` scales the softmax head (``mulaw-quantize``); the
+        mixture-of-logistics head takes only 1.0."""
         single = not isinstance(mel, (list, tuple))
         mels = [np.asarray(m, np.float32) for m in ([mel] if single else mel)]
         if not 1 <= len(mels) <= MAX_STREAMS:
@@ -149,7 +177,8 @@ class WaveNetGenerator:
             lc = self.upsampler(torch.from_numpy(batch).to(dev))
             samples = incremental_generate_cuda(
                 self.cfg.wavenet, self.packed, lc, generator=gen, gc=gc,
-                seed_audio=seed_audio, deterministic=deterministic)
+                seed_audio=seed_audio, deterministic=deterministic,
+                temperature=temperature)
         samples = samples.cpu().numpy()
         wavs = [self._decode_samples(samples[i, :frames[i] * hop])
                 for i in range(len(mels))]
@@ -158,15 +187,16 @@ class WaveNetGenerator:
     def generate_to_file(self, mel_path: Union[str, Sequence[str]],
                          out_path: Union[str, Sequence[str]],
                          speaker_id: Optional[int] = None,
-                         wav_seed: Optional[np.ndarray] = None
-                         ) -> List[str]:
+                         wav_seed: Optional[np.ndarray] = None,
+                         temperature: float = 1.0) -> List[str]:
         mel_paths = [mel_path] if isinstance(mel_path, str) else list(mel_path)
         out_paths = [out_path] if isinstance(out_path, str) else list(out_path)
         if len(mel_paths) != len(out_paths):
             raise ValueError("one output path per mel")
         mels = [np.load(p) for p in mel_paths]
         t0 = time.perf_counter()
-        wavs = self.generate(mels, speaker_id=speaker_id, wav_seed=wav_seed)
+        wavs = self.generate(mels, speaker_id=speaker_id, wav_seed=wav_seed,
+                             temperature=temperature)
         dt = time.perf_counter() - t0
         sr = self.cfg.audio.sample_rate
         n = sum(len(w) for w in wavs)

@@ -8,6 +8,8 @@ the card tests run without the conftest, from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,13 +19,17 @@ from tacotron_wavenet_vocoder_korean_tpu_torch.config import WaveNetConfig
 from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
 
 # A stack the CUDA kernel takes (R = D = 32, W = 32), cut to 6 layers and
-# S = 64.
+# S = 64; and the same stack with the softmax head (W = 2, Q = 256).
 CARD = WaveNetConfig(dilations=(1, 2, 4, 1, 2, 4), skip_channels=64,
                      upsample_factor=(2, 5))
+CARD_Q = dataclasses.replace(CARD, input_type="mulaw-quantize",
+                             scalar_input=False, out_channels=256)
 
 
-def _card_inputs(dev, B=3, T=300, seed=0):
-    packed = G.pack_params(CARD, convert.seeded_params(CARD, 1, dev))
+def _card_inputs(dev, B=3, T=300, seed=0, cfg=CARD,
+                 weight_dtype=torch.float32):
+    packed = G.pack_params(cfg, convert.seeded_params(cfg, 1, dev),
+                           weight_dtype)
     gen = torch.Generator(dev).manual_seed(seed)
     proj = G.precompute_lc_proj(
         packed, torch.randn(B, T, 80, generator=gen, device=dev))
@@ -84,12 +90,81 @@ def test_cuda_wrapper_refuses_bad_inputs():
     assert G.wavenet_generate.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["deterministic", "noise", "primed"])
+def test_cuda_softmax_head_matches_plain_twin(mode):
+    """Softmax head, f32 weights, 3 streams x 300 steps, free-running (or
+    primed for 120 steps), temperature 0.7 with noise: the same classes
+    (sums in another order move a score by ~1e-7; no near-tie flip is
+    expected at this size)."""
+    dev = _cuda()
+    packed, proj, gen = _card_inputs(dev, cfg=CARD_Q)
+    T, B = proj.shape[1], proj.shape[0]
+    kw = {"deterministic": mode == "deterministic", "temperature": 0.7}
+    if mode != "deterministic":
+        kw["noise"] = torch.rand(T, B, 256, generator=gen, device=dev)
+    if mode == "primed":
+        kw["primed"] = torch.randint(0, 256, (T, B), generator=gen,
+                                     device=dev).float()
+        kw["prime_len"] = 120
+    before = G.wavenet_generate.launches
+    got = G.wavenet_generate(packed, proj, **kw)
+    torch.cuda.synchronize()
+    assert G.wavenet_generate.launches == before + 1
+    want = G.generate_plain(packed, proj, **kw)
+    assert torch.equal(got, want), (got != want).float().mean()
+    assert len(torch.unique(got)) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["deterministic", "noise"])
+@pytest.mark.parametrize("head", ["mol", "softmax"])
+def test_cuda_bf16_kernel_matches_bf16_twin(head, mode):
+    """bf16 weights, teacher-forced 300 steps (so a flip does not compound):
+    MoL within 1e-3 per step, softmax classes 99% equal.  Both sides round
+    every activation to bf16 and sum in f32; a sum taken in another order
+    can land an activation on the other side of a bf16 rounding step, which
+    moves the logits by ~1e-3 relative and may flip a near-tie."""
+    dev = _cuda()
+    cfg = CARD if head == "mol" else CARD_Q
+    packed, proj, gen = _card_inputs(dev, cfg=cfg,
+                                     weight_dtype=torch.bfloat16)
+    T, B = proj.shape[1], proj.shape[0]
+    n = 11 if head == "mol" else 256
+    kw = {"deterministic": mode == "deterministic", "prime_len": T}
+    if mode == "noise":
+        kw["noise"] = torch.rand(T, B, n, generator=gen, device=dev)
+    kw["primed"] = (0.3 * torch.randn(T, B, generator=gen, device=dev)
+                    if head == "mol" else
+                    torch.randint(0, 256, (T, B), generator=gen,
+                                  device=dev).float())
+    got = G.wavenet_generate(packed, proj, **kw)
+    want = G.generate_plain(packed, proj, **kw)
+    if head == "mol":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    else:
+        assert (got == want).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_softmax_philox_is_seeded_and_in_range():
+    dev = _cuda()
+    packed, proj, _ = _card_inputs(dev, B=2, T=400, cfg=CARD_Q)
+    run = lambda s: G.wavenet_generate(
+        packed, proj, generator=torch.Generator(dev).manual_seed(s))
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(a, a.round()) and a.min() >= 0 and a.max() < 256
+    assert not torch.equal(a[0], a[1])           # streams draw apart
+    with pytest.raises(ValueError, match="temperature"):
+        G.wavenet_generate(packed, proj, deterministic=True, temperature=0)
+
+
 def test_twin_at_kernel_width_matches_jax_scan_sampler():
     """The twin at the widths the kernel takes, against the JAX scan
     sampler on the same seeded weights, deterministic, 200 samples:
     <= 1e-4."""
     jax = pytest.importorskip("jax")
-    import dataclasses
     from tacotron_wavenet_vocoder_korean_tpu.config import (
         WaveNetConfig as JaxWaveNetConfig)
     from tacotron_wavenet_vocoder_korean_tpu.models import wavenet as JW
@@ -109,3 +184,28 @@ def test_twin_at_kernel_width_matches_jax_scan_sampler():
                                       deterministic=True).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert want.std() > 1e-4
+
+
+def test_softmax_twin_at_kernel_width_matches_jax_scan_sampler():
+    """The softmax head's twin at the widths the kernel takes (R = D = 32,
+    Q = 256), against the JAX scan sampler on the same seeded weights,
+    deterministic, 200 steps: the same classes."""
+    jax = pytest.importorskip("jax")
+    from tacotron_wavenet_vocoder_korean_tpu.config import (
+        WaveNetConfig as JaxWaveNetConfig)
+    from tacotron_wavenet_vocoder_korean_tpu.models import wavenet as JW
+
+    from torch_port_util import nest
+
+    tree = convert.seeded_tree(CARD_Q, 1)
+    jcfg = JaxWaveNetConfig(**dataclasses.asdict(CARD_Q))
+    lc = np.random.default_rng(2).standard_normal((2, 200, 80)).astype(
+        np.float32)
+    want = np.asarray(JW.incremental_generate(
+        jcfg, nest(tree), jax.numpy.asarray(lc), jax.random.PRNGKey(0),
+        deterministic=True))
+    packed = G.pack_params(CARD_Q, convert.params_from_jax(CARD_Q, tree))
+    got = G.incremental_generate_cuda(CARD_Q, packed, torch.from_numpy(lc),
+                                      deterministic=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(want)) > 1

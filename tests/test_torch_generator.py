@@ -147,7 +147,7 @@ def test_cli_writes_wavs_on_cpu(tmp_path):
     for i, f in enumerate((4, 7)):
         sr, data = wavfile.read(tmp_path / f"o_{i}.wav")
         assert sr == cfg.audio.sample_rate and data.shape == (f * 10,)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="temperature"):
         generate.main(["--init_seed", "0", "--config",
                        str(tmp_path / "params.json"), "--mel", mels[0],
                        "--device", "cpu", "--temperature", "0.5"])

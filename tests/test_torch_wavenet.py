@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 import torch
 
-from tacotron_wavenet_vocoder_korean_tpu.config import WaveNetConfig
 from tacotron_wavenet_vocoder_korean_tpu.models import wavenet as JW
 from tacotron_wavenet_vocoder_korean_tpu_torch import convert
 from tacotron_wavenet_vocoder_korean_tpu_torch.models import mixture as PX
@@ -127,16 +126,3 @@ def test_stochastic_rollout_matches_jax_given_its_uniforms(tiny_gc):
         port_cfg(TINY_GC), packed, t(lc), gc=t(g), noise=noise).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert want.std() > 1e-3
-
-
-def test_quantized_input_is_refused(tiny):
-    """mulaw-quantize (one-hot input, softmax head) is refused before any
-    packing or sampling; the scalar-input config is taken."""
-    cfg = port_cfg(WaveNetConfig(input_type="mulaw-quantize",
-                                 scalar_input=False))
-    with pytest.raises(NotImplementedError):
-        PW.require_scalar_input(cfg)
-    with pytest.raises(NotImplementedError):
-        G.incremental_generate_cuda(cfg, tiny[1], torch.zeros(1, 4, 80),
-                                    deterministic=True)
-    PW.require_scalar_input(port_cfg(TINY))

@@ -106,7 +106,13 @@ def test_wrapper_refuses_what_it_cannot_run(tiny):
         G.wavenet_generate(packed, proj, deterministic=True, prime_len=3)
     with pytest.raises(ValueError, match="unsupported device"):
         G.wavenet_generate(packed, proj.to("meta"), deterministic=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="out_channels"):
         G.pack_params(dataclasses.replace(port_cfg(TINY), scalar_input=False,
                                           input_type="mulaw-quantize"), {})
+    for temperature in (0.0, -1.0):
+        with pytest.raises(ValueError, match="temperature"):
+            G.wavenet_generate(packed, proj, deterministic=True,
+                               temperature=temperature)
+    with pytest.raises(ValueError, match="temperature"):
+        G.wavenet_generate(packed, proj, deterministic=True, temperature=0.5)
 
