@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one GPU: build the generation kernel,
 hold each of its four variants (mixture-of-logistics or 256-way softmax
 head, f32 or bf16 weights) against its plain twin at full width, drive the
-vocoder serving path (mel -> wav) through ``WaveNetGenerator``, and time
-the kernel.
+vocoder serving path (mel -> wav) through ``WaveNetGenerator``, check that
+an out-of-range speaker id leaves the card working, time the kernel, and
+time the previous step design (``csrc/wavenet_gen_block.cu``) beside it.
 
     python3 chip_smoke.py
 
@@ -78,8 +79,10 @@ CLASS_AGREE_BF16 = 0.95  # and an absolute floor for the softmax head
 # statistics' variance, so both tests stay conservative.
 KS_ALPHA_COEF = 1.95
 ALPHA = 0.001
-# Timing: the plain twin is timed over a span of this many steps.
+# Timing: the plain twin is timed over a span of this many steps; the
+# previous step design beside the kernel over SIDE_T steps of B = 4.
 SPAN = 512
+SIDE_T = 16384
 
 
 def log(msg: str) -> None:
@@ -211,6 +214,7 @@ def main() -> int:
     from tacotron_wavenet_vocoder_korean_tpu_torch.models.wavenet import (
         Upsampler)
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops import build
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
         generate_bytes, generate_flops, generate_plain, kernel_variant,
         pack_params, precompute_lc_proj, wavenet_generate)
@@ -233,7 +237,7 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)}")
 
     with phase("build"):
-        build.load_library("wavenet_gen")
+        build.load_libraries("wavenet_gen", "wavenet_gen_block")
 
     cfg = load_config(CONFIG)
     w = cfg.wavenet
@@ -474,6 +478,31 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    with phase("speaker ids: out of range raises on the host, the card "
+               "works after"):
+        ws = dataclasses.replace(w, num_speakers=2, gc_channels=16)
+        gen_s = WaveNetGenerator(dataclasses.replace(cfg, wavenet=ws),
+                                 seeded_params(ws, seed=0, device=dev),
+                                 device="cuda")
+        mel = mels[0][:20]
+        try:
+            gen_s.generate(mel, speaker_id=2)
+        except IndexError as e:
+            log(f"  speaker_id=2 of 2 speakers: IndexError ({e})")
+        else:
+            raise AssertionError("speaker_id=2 of 2 speakers did not raise")
+        last = gen_s.generate(mel, speaker_id=-1, seed=3)
+        one = gen_s.generate(mel, speaker_id=1, seed=3)
+        torch.cuda.synchronize()
+        if last.shape != (20 * cfg.audio.hop_size,) or not (
+                np.isfinite(last).all() and np.abs(last).max() <= 1):
+            raise AssertionError("generation after the IndexError failed")
+        if not np.array_equal(last, one):
+            raise AssertionError("speaker_id=-1 is not the last speaker")
+        log(f"  then speaker_id=-1: {last.shape[0]} finite samples, equal "
+            "to speaker_id=1 on the same seed")
+        del gen_s
+
     timing = {}
     with phase("kernel timing at the main path's shapes"), torch.no_grad():
         B = len(mels)
@@ -505,6 +534,39 @@ def main() -> int:
                 f"({flops:.3e} FLOP, {nbytes:.3e} B); {SPAN} steps: kernel "
                 f"{span_ms:.2f} ms, plain twin {plain_ms:.1f} ms [{smi}]")
 
+    side = {}
+    with phase(f"previous step design beside the kernel, B=4 T={SIDE_T}"), \
+            torch.no_grad():
+        kernel_launcher = G._launcher
+        parent = build.load_library("wavenet_gen_block").wavenet_gen_launch
+        parent.argtypes = kernel_launcher().argtypes
+        parent.restype = kernel_launcher().restype
+        B, T = 4, SIDE_T
+        try:
+            for v, packed in packs.items():
+                temp = 0.7 if v.startswith("softmax") else 1.0
+                proj = lc_proj_for(v, B, T)
+                times = {"parent": [], "kernel": []}
+                # parent, kernel, kernel, parent: in turns on one card
+                for name in ("parent", "kernel", "kernel", "parent"):
+                    fn = parent if name == "parent" else kernel_launcher()
+                    G._launcher = lambda fn=fn: fn
+                    gen_t = torch.Generator(dev).manual_seed(8)
+                    wavenet_generate(packed, proj[:, :64].contiguous(),
+                                     generator=gen_t, temperature=temp)
+                    times[name].append(cuda_ms(lambda: wavenet_generate(
+                        packed, proj, generator=gen_t, temperature=temp))
+                        / T * 1e3)
+                side[v] = {k: min(x) for k, x in times.items()}
+                log(f"  {v}: previous {times['parent']} us per step, "
+                    f"kernel {times['kernel']} us per step")
+        finally:
+            G._launcher = kernel_launcher
+        log(f"previous step design vs kernel, us per step at B=4 T={T}: "
+            + "; ".join(f"{v} {t['parent']:.1f} -> {t['kernel']:.1f} "
+                        f"(x{t['parent'] / t['kernel']:.2f})"
+                        for v, t in side.items()) + f" [{smi}]")
+
     kernels = []
     for v, t in timing.items():
         if main_launches.get(v, 0) < 1:
@@ -523,6 +585,9 @@ def main() -> int:
             "bound_ms": max(t["t_ops"], t["t_bytes"]),
             "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
             "library_ms": None,
+            "side_by_side_steps": SIDE_T,
+            "us_per_step": side[v]["kernel"],
+            "parent_us_per_step": side[v]["parent"],
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]

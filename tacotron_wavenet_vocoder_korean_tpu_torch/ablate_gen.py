@@ -1,21 +1,25 @@
 """Where the generation kernel's step goes: time builds of
-``csrc/wavenet_gen.cu`` with one part removed or swapped, f32 and bf16
-weights, MoL head, full ``wn_moon`` width with seeded weights.
+``csrc/wavenet_gen.cu`` with one part removed, and the previous step design
+beside it, f32 and bf16 weights, MoL head, full ``wn_moon`` width with
+seeded weights.
 
     python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen
 
-Needs one CUDA card and ``nvcc``.  Each variant is the kernel's source with
-one text substitution, built with the package's flags into a temporary
-directory; the timings use the package's wrapper with that build bound in
-its place, warmed up by a short launch.  What an ablated build computes is
-not the model's function: only its time means anything.  Variants:
+Needs one CUDA card and ``nvcc``.  Each variant is a kernel source with
+text substitutions, built with the package's flags into a temporary
+directory; a substitution that no longer matches its source exactly once
+raises before anything is timed.  The timings use the package's wrapper
+with that build bound in its place, warmed up by a short launch.  What an
+ablated build computes is not the model's function: only its time means
+anything.  Variants:
 
-  base           the kernel as it is
-  no_skip        the deferred skip product left out
-  no_post1       the post1 product left out
-  no_chain       the 50-layer chain left out (gated values from the lc row)
-  column_loop    both weight types on the one-column skip/post1 loop
-  octet_loop     both weight types on the eight-column 16-byte-load loop
+  base       the kernel as it is
+  no_skip    the deferred skip product left out
+  no_post1   the post1 product left out
+  no_chain   the L-layer chain and its weight copies left out (gated
+             values from the lc row)
+  parent     the previous, block-synchronous step design
+             (``csrc/wavenet_gen_block.cu``), unchanged
 """
 from __future__ import annotations
 
@@ -36,41 +40,37 @@ from .ops import build, wavenet_gen as G
 
 REPO = os.path.dirname(build.PKG_DIR)
 SOURCE = os.path.join(build.CSRC_DIR, "wavenet_gen.cu")
+PARENT = os.path.join(build.CSRC_DIR, "wavenet_gen_block.cu")
 
 _SKIP = "    dense_relu(gat, w_skip, p.skip_bias, L * D, S, z, part, tid);\n"
 _POST1 = "    dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
-_CHAIN = ("    for (int l = 0; l < L; ++l) {\n"
-          "      // This layer's input goes into its ring at slot t mod d.\n")
-_LOOP = "  if constexpr (sizeof(WT) == 4) {\n"
-_ROW8_F32_DOT = ("  __device__ __forceinline__ float dot(const float* x) const {\n"
-                 "    return x[0] * a.x")
-_SMEM = "(bf16 ? 8 * NT : 0)"
-_ROW8_F32_AT = ("  __device__ __forceinline__ float at(int i) const {\n"
-                "    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};\n"
-                "    return v[i];\n"
-                "  }\n")
+_PROLOGUE = "  if (tid == PRODUCER)\n    for (; g_load < NSLOT"
+_CHAIN = "    if (warp == 0) {\n      run_chain<WT>("
+_PRODUCER = "    } else if (tid == PRODUCER) {\n"
 
-VARIANTS: Dict[str, List[Tuple[str, str]]] = {
-    "base": [],
-    "no_skip": [(_SKIP, "    for (int s = tid; s < S; s += NT) "
-                        "z[s] = fmaxf(p.skip_bias[s], 0.f);\n"
-                        "    __syncthreads();\n")],
-    "no_post1": [(_POST1, "    for (int s = tid; s < S; s += NT) z1[s] = z[s];\n"
-                          "    __syncthreads();\n")],
-    "no_chain": [(_CHAIN, "    for (int i = tid; i < L * D; i += NT)\n"
-                          "      gat[i] = rnd<WT>(0.01f * lcs[i]);\n"
-                          "    __syncthreads();\n"
-                          "    for (int l = 0; l < 0; ++l) {\n")],
-    "column_loop": [(_LOOP, "  if constexpr (true) {\n")],
-    "octet_loop": [(_LOOP, "  if constexpr (false) {\n"),
-                   (_ROW8_F32_DOT, _ROW8_F32_AT + _ROW8_F32_DOT),
-                   (_SMEM, "8 * NT")],
+# name -> (source, [(old, new), ...])
+VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
+    "base": (SOURCE, []),
+    "no_skip": (SOURCE, [(_SKIP, "    for (int s = tid; s < S; s += NT) "
+                                 "z[s] = fmaxf(p.skip_bias[s], 0.f);\n"
+                                 "    __syncthreads();\n")]),
+    "no_post1": (SOURCE, [(_POST1, "    for (int s = tid; s < S; s += NT) "
+                                   "z1[s] = z[s];\n"
+                                   "    __syncthreads();\n")]),
+    "no_chain": (SOURCE, [
+        (_PROLOGUE, "  if (false)\n    for (; g_load < NSLOT"),
+        (_CHAIN, "    for (int i = tid; i < L * D; i += NT)\n"
+                 "      gat[i] = rnd<WT>(0.01f * lcs[i]);\n"
+                 "    if (false) {\n      run_chain<WT>("),
+        (_PRODUCER, "    } else if (false) {\n")]),
+    "parent": (PARENT, []),
 }
 
 
 def variant_source(name: str) -> str:
-    src = open(SOURCE, encoding="utf-8").read()
-    for old, new in VARIANTS[name]:
+    path, subs = VARIANTS[name]
+    src = open(path, encoding="utf-8").read()
+    for old, new in subs:
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: the kernel source no longer holds "
                                f"{old!r} once")

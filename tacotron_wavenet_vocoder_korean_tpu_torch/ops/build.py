@@ -8,6 +8,7 @@ loaded.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -71,3 +72,12 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built and loaded library of ``csrc/<name>.cu`` (once per
     process)."""
     return ctypes.CDLL(build(name))
+
+
+def load_libraries(*names: str) -> None:
+    """Build every ``csrc/<name>.cu`` at once (one ``nvcc`` each, all
+    started together), then load each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build, names))
+    for name in names:
+        load_library(name)

@@ -246,6 +246,39 @@ def generate_plain(packed: Packed, lc_proj: torch.Tensor,
     return out
 
 
+def _limits_error(R: int, D: int, W: int, S: int, C: int,
+                  quantized: bool) -> Optional[str]:
+    """Why the CUDA kernel cannot run these widths, or None when it can."""
+    if R != 32 or D != 32:
+        return (f"the CUDA kernel is laid out for R = D = 32 channels, got "
+                f"R={R}, D={D}")
+    if W > 32:
+        return f"the CUDA kernel takes up to 32 front taps, got W={W}"
+    if S % 8 or S > 4096:
+        return (f"the CUDA kernel takes S <= 4096 skip channels, a multiple "
+                f"of 8, got S={S}")
+    if quantized and C > 256:
+        return f"the softmax head takes up to 256 classes, got {C}"
+    if not quantized and (C % 3 or C > 96):
+        return f"the MoL head takes 3 * nr_mix <= 96 channels, got {C}"
+    return None
+
+
+def kernel_limits_error(cfg: WaveNetConfig) -> Optional[str]:
+    """Why the CUDA kernel cannot run ``cfg``'s widths (the message names
+    the limit), or None when it can.  The kernel takes R = D = 32, at most
+    32 front taps, S <= 4096 skip channels (a multiple of 8), a MoL head of
+    up to 96 channels and a softmax head of up to 256 classes; the plain
+    twin takes any width."""
+    scalar = cfg.scalar_input
+    return _limits_error(
+        cfg.residual_channels, cfg.dilation_channels,
+        cfg.initial_filter_width if scalar else cfg.filter_width,
+        cfg.skip_channels,
+        cfg.out_channels if scalar else cfg.quantization_channels,
+        not scalar)
+
+
 _PACKED_ORDER = ("w_tap", "w_res_t", "b_res", "front", "w_skip",
                  "skip_bias", "post1", "b1", "post2_t", "b2")
 
@@ -317,21 +350,16 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
         front = packed["front_oh"]
         W = front.shape[0]
         front_shape, n_noise = (W, C, two_r // 2), C
-        if C > 256:
-            raise ValueError(f"the softmax head takes up to 256 classes, "
-                             f"got {C}")
     else:
         front = packed["front_t"]
         W = front.shape[1]
         front_shape, n_noise = (two_r // 2, W), C // 3 + 1
-        if C % 3 or C > 96:
-            raise ValueError(f"the MoL head takes 3 * nr_mix <= 96 channels,"
-                             f" got {C}")
-    if two_d != 64 or two_r != 64:
-        raise ValueError("the CUDA kernel is laid out for R = D = 32")
-    if LD2 != L * two_d or W > 32 or S % 8 or S > 4096:
-        raise ValueError(f"unsupported shapes: lc_proj {tuple(lc_proj.shape)}"
-                         f", L={L}, W={W}, S={S}, C={C}")
+    error = _limits_error(two_r // 2, two_d // 2, W, S, C, quantized)
+    if error is not None:
+        raise ValueError(error)
+    if LD2 != L * two_d:
+        raise ValueError(f"lc_proj {tuple(lc_proj.shape)} does not match "
+                         f"L={L} layers of 2D={two_d}")
     if wdt not in WEIGHT_DTYPES:
         raise TypeError(f"weights have dtype {wdt}, expected one of "
                         f"{WEIGHT_DTYPES}")

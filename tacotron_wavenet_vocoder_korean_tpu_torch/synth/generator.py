@@ -28,7 +28,8 @@ from ..device import resolve_device
 from ..dsp.audio_io import save_wav
 from ..dsp.mulaw import inv_mulaw, inv_mulaw_quantize, mulaw, mulaw_quantize
 from ..models.wavenet import Params, Upsampler
-from ..ops.wavenet_gen import incremental_generate_cuda, pack_params
+from ..ops.wavenet_gen import (incremental_generate_cuda,
+                                kernel_limits_error, pack_params)
 
 MAX_STREAMS = 8
 
@@ -91,14 +92,26 @@ def encode_seed_audio(cfg: Config, wav: np.ndarray, batch: int
 class WaveNetGenerator:
     """Holds the config, the converted parameters on ``device``, the packed
     kernel layout (matrices in ``weight_dtype``: by default bf16 on a GPU,
-    f32 on the CPU) and the upsampler."""
+    f32 on the CPU) and the upsampler.  On a GPU, widths the CUDA kernel
+    does not take (``kernel_limits_error``) raise ``ValueError`` here,
+    before any weight moves to the card."""
 
     def __init__(self, cfg: Config, params: Params,
                  device: Union[str, torch.device, None] = None,
                  weight_dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            error = kernel_limits_error(cfg.wavenet)
+            if error is not None:
+                raise ValueError(error)
         self.weight_dtype = resolve_weight_dtype(self.device, weight_dtype)
+        # Speaker rows are picked on the host, with numpy's indexing (a
+        # negative id wraps, an id out of range raises IndexError), as the
+        # JAX generator picks them: an index out of range on the card would
+        # trip a device-side assert and leave the CUDA context unusable.
+        self.gc_table = (params["gc_embedding"].detach().cpu().numpy()
+                         if "gc_embedding" in params else None)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.packed = pack_params(cfg.wavenet, self.params, self.weight_dtype)
         self.upsampler = Upsampler(cfg.wavenet).load_params(self.params).to(
@@ -161,7 +174,7 @@ class WaveNetGenerator:
             ids = np.broadcast_to(
                 np.asarray(0 if speaker_id is None else speaker_id),
                 (len(mels),)).copy()
-            gc = self.params["gc_embedding"][torch.as_tensor(ids, device=dev)]
+            gc = torch.from_numpy(self.gc_table[ids]).to(dev)
 
         seed_audio = None
         total = batch.shape[1] * hop

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 from tacotron_wavenet_vocoder_korean_tpu_torch import convert
-from tacotron_wavenet_vocoder_korean_tpu_torch.config import WaveNetConfig
+from tacotron_wavenet_vocoder_korean_tpu_torch.config import (
+    AudioConfig, Config, WaveNetConfig)
 from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
+from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
+    WaveNetGenerator)
 
 # A stack the CUDA kernel takes (R = D = 32, W = 32), cut to 6 layers and
 # S = 64; and the same stack with the softmax head (W = 2, Q = 256).
@@ -158,6 +161,41 @@ def test_cuda_softmax_philox_is_seeded_and_in_range():
     assert not torch.equal(a[0], a[1])           # streams draw apart
     with pytest.raises(ValueError, match="temperature"):
         G.wavenet_generate(packed, proj, deterministic=True, temperature=0)
+
+
+@pytest.mark.cuda
+def test_cuda_generator_refuses_kernel_widths_before_moving_weights():
+    """R = D = 8 on the card: ValueError naming the limit at construction,
+    with nothing allocated on the card."""
+    dev = _cuda()
+    narrow = WaveNetConfig(dilations=(1, 2), residual_channels=8,
+                           dilation_channels=8, skip_channels=16,
+                           upsample_factor=(2, 5))
+    params = convert.seeded_params(narrow, 0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    with pytest.raises(ValueError, match="R = D = 32"):
+        WaveNetGenerator(Config(audio=AudioConfig(hop_size=10),
+                                wavenet=narrow), params, device="cuda")
+    assert torch.cuda.memory_allocated(dev) == before
+
+
+@pytest.mark.cuda
+def test_cuda_speaker_id_out_of_range_leaves_the_card_working():
+    """An id equal to num_speakers raises IndexError on the host; the next
+    generation on the same card succeeds."""
+    _cuda()
+    cfg = dataclasses.replace(CARD, num_speakers=2, gc_channels=4)
+    gen = WaveNetGenerator(Config(audio=AudioConfig(hop_size=10),
+                                  wavenet=cfg),
+                           convert.seeded_params(cfg, 0), device="cuda")
+    mel = np.random.default_rng(0).standard_normal((4, 80)).astype(
+        np.float32)
+    with pytest.raises(IndexError):
+        gen.generate(mel, speaker_id=2)
+    wav = gen.generate(mel, speaker_id=-1)
+    torch.cuda.synchronize()
+    assert wav.shape == (40,) and np.isfinite(wav).all()
 
 
 def test_twin_at_kernel_width_matches_jax_scan_sampler():

@@ -15,15 +15,15 @@ from tacotron_wavenet_vocoder_korean_tpu import config as JC
 from tacotron_wavenet_vocoder_korean_tpu import dsp as jdsp
 from tacotron_wavenet_vocoder_korean_tpu.models import wavenet as JW
 from tacotron_wavenet_vocoder_korean_tpu.synth.generator import (
-    batch_mels, encode_seed_audio)
+    WaveNetGenerator as JaxWaveNetGenerator, batch_mels, encode_seed_audio)
 from tacotron_wavenet_vocoder_korean_tpu_torch import convert, generate
 from tacotron_wavenet_vocoder_korean_tpu_torch.config import load_config
 from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
-    incremental_generate_cuda, pack_params)
+    incremental_generate_cuda, kernel_limits_error, pack_params)
 from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
     WaveNetGenerator)
 from torch_port_util import (
-    RNG, TINY, TINY_GC, jax_params, nest, port_full_cfg, t)
+    RNG, TINY, TINY_GC, jax_params, nest, port_cfg, port_full_cfg, t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WN_MOON = os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz")
@@ -151,3 +151,73 @@ def test_cli_writes_wavs_on_cpu(tmp_path):
         generate.main(["--init_seed", "0", "--config",
                        str(tmp_path / "params.json"), "--mel", mels[0],
                        "--device", "cpu", "--temperature", "0.5"])
+
+
+@pytest.mark.parametrize("speaker", [1, -1])
+def test_speaker_ids_index_as_the_jax_generator_does(speaker):
+    """A valid id and -1 (numpy wraps it to the last speaker) pick the JAX
+    generator's rows: the port's output equals the JAX generation path
+    with the same ids, <= 1e-4; -1 equals num_speakers - 1."""
+    jp = jax_params(TINY_GC)
+    gen = WaveNetGenerator(port_full_cfg(TINY_GC),
+                           convert.params_from_jax(TINY_GC, jp), device="cpu")
+    mel = np.random.default_rng(4).standard_normal((5, 80)).astype(
+        np.float32)
+    got = gen.generate(mel, speaker_id=speaker, deterministic=True)
+    want = _jax_reference(TINY_GC, jp, [mel], gc_ids=[speaker])[0]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    if speaker < 0:
+        last = gen.generate(mel, speaker_id=TINY_GC.num_speakers + speaker,
+                            deterministic=True)
+        np.testing.assert_array_equal(got, last)
+
+
+def test_speaker_id_out_of_range_raises_index_error_as_in_jax():
+    """An id equal to num_speakers raises IndexError in both generators,
+    before any sampling."""
+    jp = jax_params(TINY_GC)
+    full = port_full_cfg(TINY_GC)
+    gen = WaveNetGenerator(full, convert.params_from_jax(TINY_GC, jp),
+                           device="cpu")
+    ref = JaxWaveNetGenerator()
+    ref.cfg = JC.Config(audio=JC.AudioConfig(hop_size=full.audio.hop_size),
+                        wavenet=TINY_GC)
+    ref.params, ref.gc_enable = jp, True
+    mel = np.zeros((3, 80), np.float32)
+    bad = TINY_GC.num_speakers
+    with pytest.raises(IndexError):
+        ref.generate(mel, speaker_id=bad)
+    with pytest.raises(IndexError):
+        gen.generate(mel, speaker_id=bad, deterministic=True)
+    with pytest.raises(IndexError):
+        gen.generate([mel, mel], speaker_id=[0, bad], deterministic=True)
+    assert gen.generate(mel, speaker_id=0, deterministic=True).shape == (30,)
+
+
+@pytest.mark.parametrize("case", ["tiny", "wn_moon", "wn_moon_quantized",
+                                  "front", "skip", "mol", "classes"])
+def test_kernel_limits_error(case):
+    """The CUDA kernel's width limits, in one function: R = D = 8 (the test
+    widths) is refused, the committed wn_moon config (MoL head, and switched
+    to the 256-way softmax head) is accepted, and each other limit names
+    itself."""
+    moon = load_config(WN_MOON).wavenet
+    quantized = dataclasses.replace(
+        moon, input_type="mulaw-quantize", scalar_input=False,
+        out_channels=moon.quantization_channels)
+    cfg, refused = {
+        "tiny": (port_cfg(TINY), "R = D = 32"),
+        "wn_moon": (moon, None),
+        "wn_moon_quantized": (quantized, None),
+        "front": (dataclasses.replace(moon, initial_filter_width=33),
+                  "32 front taps"),
+        "skip": (dataclasses.replace(moon, skip_channels=516), "S <= 4096"),
+        "mol": (dataclasses.replace(moon, out_channels=99), "MoL head"),
+        "classes": (dataclasses.replace(quantized, quantization_channels=512),
+                    "256 classes"),
+    }[case]
+    error = kernel_limits_error(cfg)
+    if refused is None:
+        assert error is None
+    else:
+        assert error is not None and refused in error
