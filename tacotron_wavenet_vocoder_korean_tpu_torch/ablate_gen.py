@@ -13,13 +13,23 @@ with that build bound in its place, warmed up by a short launch.  What an
 ablated build computes is not the model's function: only its time means
 anything.  Variants:
 
-  base       the kernel as it is
-  no_skip    the deferred skip product left out
-  no_post1   the post1 product left out
-  no_chain   the L-layer chain and its weight copies left out (gated
-             values from the lc row)
-  parent     the previous, block-synchronous step design
-             (``csrc/wavenet_gen_block.cu``), unchanged
+  base           the kernel as it is
+  no_skip        the skip product left out (the skip warps idle)
+  no_post1       the post1 product left out
+  no_chain       the L-layer chain and its weight copies left out (gated
+                 values from the lc row)
+  chain_no_wait  the chain reads its weight slots without waiting for them
+  chain_no_tap   the chain's tap products left out
+  chain_no_gate  tanh * sigmoid replaced by a sum
+  chain_no_res   the chain's residual products left out
+  skip_u8        the skip warps load 8 rows at once in f32 too (16 in
+                 the kernel)
+  skip_roundsN   the skip warps wait for N layers (or the last) before
+                 each round (N = 4, 12, 50: 50 runs the skip after the chain)
+  skip_all_warps the skip product also on the chain warp's scheduler
+  post1_u16      post1 (bf16) loads 16 rows before use (8 in the kernel)
+  parent         the previous, block-synchronous step design
+                 (``csrc/wavenet_gen_block.cu``), unchanged
 """
 from __future__ import annotations
 
@@ -42,27 +52,56 @@ REPO = os.path.dirname(build.PKG_DIR)
 SOURCE = os.path.join(build.CSRC_DIR, "wavenet_gen.cu")
 PARENT = os.path.join(build.CSRC_DIR, "wavenet_gen_block.cu")
 
-_SKIP = "    dense_relu(gat, w_skip, p.skip_bias, L * D, S, z, part, tid);\n"
+_SKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, S, part, "
+         "skip_i, lane);\n")
+_SKIP_SUM = ("      for (int j = 0; j < skip_groups<WT>(S); ++j) "
+             "v += part[j * S + s];\n")
 _POST1 = "    dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
 _PROLOGUE = "  if (tid == PRODUCER)\n    for (; g_load < NSLOT"
 _CHAIN = "    if (warp == 0) {\n      run_chain<WT>("
 _PRODUCER = "    } else if (tid == PRODUCER) {\n"
+_WAIT = "    mbar_wait(&full[s], (unsigned)((g / NSLOT) & 1));\n"
+_TAP = ("      Chunk<WT>::two(wf + k, wg + k, k < R ? xo + k : hr + (k - R), "
+        "af, ag);\n")
+_GATE = "rnd<WT>(tanhf(f) * (1.f / (1.f + expf(-gg))))"
+_RES = "      Chunk<WT>::one(wr + k, gat + l * D + k, ar);\n"
+_SKIP_U = "  constexpr int U = sizeof(WT) == 2 ? 8 : 16;\n"
+_SKIP_WAIT = "    mbar_wait(&ready[l0], parity);\n    int l1 = l0 + 1;\n"
+_NSK = "constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);\n"
+_SKIP_I = ("  const int skip_i = (warp > 1 && warp % 4 != 0)\n"
+           "                         ? (warp - warp / 4 - 2) * 32 + lane : -1;\n")
+_POST1_U = "    constexpr int U = 8;\n    const int P = S / 8, H = NT / P;\n"
 
 # name -> (source, [(old, new), ...])
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "base": (SOURCE, []),
-    "no_skip": (SOURCE, [(_SKIP, "    for (int s = tid; s < S; s += NT) "
-                                 "z[s] = fmaxf(p.skip_bias[s], 0.f);\n"
-                                 "    __syncthreads();\n")]),
+    "no_skip": (SOURCE, [(_SKIP, ""), (_SKIP_SUM, "")]),
     "no_post1": (SOURCE, [(_POST1, "    for (int s = tid; s < S; s += NT) "
                                    "z1[s] = z[s];\n"
                                    "    __syncthreads();\n")]),
     "no_chain": (SOURCE, [
         (_PROLOGUE, "  if (false)\n    for (; g_load < NSLOT"),
-        (_CHAIN, "    for (int i = tid; i < L * D; i += NT)\n"
-                 "      gat[i] = rnd<WT>(0.01f * lcs[i]);\n"
-                 "    if (false) {\n      run_chain<WT>("),
+        (_CHAIN, "    if (warp == 0) {\n"
+                 "      for (int l = 0; l < L; ++l) {\n"
+                 "        gat[l * D + lane] = "
+                 "rnd<WT>(0.01f * lcs[l * 2 * D + lane]);\n"
+                 "        mbar_arrive(&ready[l]);\n"
+                 "      }\n"
+                 "    } else if (false) {\n      run_chain<WT>("),
         (_PRODUCER, "    } else if (false) {\n")]),
+    "chain_no_wait": (SOURCE, [(_WAIT, "")]),
+    "chain_no_tap": (SOURCE, [(_TAP, "")]),
+    "chain_no_gate": (SOURCE, [(_GATE, "rnd<WT>(0.01f * (f + gg))")]),
+    "chain_no_res": (SOURCE, [(_RES, "")]),
+    "skip_u8": (SOURCE, [(_SKIP_U, "  constexpr int U = 8;\n")]),
+    **{f"skip_rounds{n}": (SOURCE, [(_SKIP_WAIT, _SKIP_WAIT.replace(
+        "ready[l0]", f"ready[min(l0 + {n - 1}, L - 1)]"))])
+       for n in (4, 12, 50)},
+    "skip_all_warps": (SOURCE, [
+        (_NSK, "constexpr int NSK = 32 * (NT / 32 - 2);\n"),
+        (_SKIP_I, "  const int skip_i = warp > 1 ? (warp - 2) * 32 + lane "
+                  ": -1;\n")]),
+    "post1_u16": (SOURCE, [(_POST1_U, _POST1_U.replace("8;", "16;"))]),
     "parent": (PARENT, []),
 }
 
