@@ -27,7 +27,6 @@ anything.  Variants:
   skip_roundsN   the skip warps wait for N layers (or the last) before
                  each round (N = 4, 12, 50: 50 runs the skip after the chain)
   skip_all_warps the skip product also on the chain warp's scheduler
-  post1_u16      post1 (bf16) loads 16 rows before use (8 in the kernel)
   parent         the previous, block-synchronous step design
                  (``csrc/wavenet_gen_block.cu``), unchanged
 """
@@ -54,8 +53,7 @@ PARENT = os.path.join(build.CSRC_DIR, "wavenet_gen_block.cu")
 
 _SKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, S, part, "
          "skip_i, lane);\n")
-_SKIP_SUM = ("      for (int j = 0; j < skip_groups<WT>(S); ++j) "
-             "v += part[j * S + s];\n")
+_SKIP_SUM = "      for (int j = 0; j < n_groups; ++j) v += part[j * S + s];\n"
 _POST1 = "    dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
 _PROLOGUE = "  if (tid == PRODUCER)\n    for (; g_load < NSLOT"
 _CHAIN = "    if (warp == 0) {\n      run_chain<WT>("
@@ -70,7 +68,6 @@ _SKIP_WAIT = "    mbar_wait(&ready[l0], parity);\n    int l1 = l0 + 1;\n"
 _NSK = "constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);\n"
 _SKIP_I = ("  const int skip_i = (warp > 1 && warp % 4 != 0)\n"
            "                         ? (warp - warp / 4 - 2) * 32 + lane : -1;\n")
-_POST1_U = "    constexpr int U = 8;\n    const int P = S / 8, H = NT / P;\n"
 
 # name -> (source, [(old, new), ...])
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
@@ -101,7 +98,6 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         (_NSK, "constexpr int NSK = 32 * (NT / 32 - 2);\n"),
         (_SKIP_I, "  const int skip_i = warp > 1 ? (warp - 2) * 32 + lane "
                   ": -1;\n")]),
-    "post1_u16": (SOURCE, [(_POST1_U, _POST1_U.replace("8;", "16;"))]),
     "parent": (PARENT, []),
 }
 
