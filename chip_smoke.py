@@ -3,8 +3,11 @@
 hold each of its four variants (mixture-of-logistics or 256-way softmax
 head, f32 or bf16 weights) against its plain twin at full width, drive the
 vocoder serving path (mel -> wav) through ``WaveNetGenerator``, check that
-an out-of-range speaker id leaves the card working, time the kernel, and
-time the previous step design (``csrc/wavenet_gen_block.cu``) beside it.
+an out-of-range speaker id leaves the card working, drive text -> mel
+(``Synthesizer``, Tacotron at the ``both_r2`` width) and text -> wav (its
+mels through the bf16 generator), hold the card's f32 Tacotron decode
+against the CPU's, time the decode, time the kernel, and time the previous
+step design (``csrc/wavenet_gen_block.cu``) beside it.
 
     python3 chip_smoke.py
 
@@ -13,9 +16,14 @@ either is missing or when this file stands outside the repository.  Weights
 are random, made from a seed at the full width of the repository's
 ``wn_moon`` WaveNet (its ``params.json`` is read from the checkpoint
 tarball): as it is (raw input, MoL head), and switched to ``mulaw-quantize``
-(one-hot input, softmax head over 256 classes).  The requests are the
-committed Tacotron mels ``samples/both_r2/{0,1,2,3}.mel.npy``.  Wavs go to
-a temporary directory that is removed at the end.  The last line is
+(one-hot input, softmax head over 256 classes).  The vocoder's requests are
+the committed Tacotron mels ``samples/both_r2/{0,1,2,3}.mel.npy``; the
+Tacotron's are four Korean texts (two per speaker, with digits and Latin
+letters), decoded with seeded weights over the served 200 steps in bf16
+with prenet dropout, as ``both_r2``'s ``params.json`` asks (the port's
+``config.BOTH_R2``; the tarball itself is not copied to the card).  Wavs go
+to a temporary directory that is removed at the end.  A ``tacotron`` JSON
+line carries the decode's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -83,6 +91,26 @@ ALPHA = 0.001
 # previous step design beside the kernel over SIDE_T steps of B = 4.
 SPAN = 512
 SIDE_T = 16384
+# Tacotron (text -> mel): four requests, two per speaker, with digits and
+# Latin letters, decoded in one batch over the served max_iters.
+TEXTS = ["존경하는 국민 여러분, 오늘은 2026년 10월 17일입니다.",
+         "KIA와 CAT 3대가 12시에 도착했다.",
+         "안녕하세요. 반갑습니다.",
+         "JTBC 뉴스에서 60.3%의 시청률을 기록했습니다."]
+SPEAKERS = [0, 1, 0, 1]
+# The card's f32 decode against the same decode on the CPU: the GPU sums
+# in another order (TF32 off), and on seeded weights the decoder contracts
+# such differences rather than growing them (the port against JAX, both
+# f32 on a CPU, differ by ~1e-6 at this width: tests/test_torch_tacotron.py),
+# so 1e-4 leaves a wide margin.
+TACO_F32_TOL = 1e-4
+# The card's bf16 decode against the CPU's bf16 decode: the two round their
+# sums differently, and 200 steps carry that, so they are held to bf16's own
+# noise: mean |card - CPU| at most this many times the CPU's mean
+# |bf16 - f32| (as tests/test_torch_tacotron.py holds the port to JAX).
+TACO_BF16_RATIO = 2.0
+TACO_REPS = 5            # timed repetitions of each decode, after a warm-up
+ALIGN_SUM_TOL = 1e-3     # a column of monotonic attention sums to <= 1
 
 
 def log(msg: str) -> None:
@@ -193,6 +221,212 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def decoder_launches(model, enc, masks, steps: int) -> dict:
+    """CUDA kernels launched per decoder step, counted by torch.profiler
+    over runs of ``steps`` and 2 x ``steps`` steps (the difference, so the
+    loop's set-up is not counted), and the profiler's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    counts, device_us = [], []
+    for n in (steps, 2 * steps):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decoder(enc, n, [m[:n] for m in masks])
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type.name == "CUDA"]
+        launch_calls = sum(e.count for e in events if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+        counts.append((sum(e.count for e in kernels), launch_calls))
+        device_us.append(sum(getattr(e, "self_device_time_total", None)
+                             or getattr(e, "self_cuda_time_total", 0)
+                             for e in kernels))
+    if counts[1][0] == 0:                # the profiler saw no device
+        return {"kernels_per_step": None, "device_us_per_step": None,
+                "launch_calls_per_step": (counts[1][1] - counts[0][1])
+                / steps}
+    return {"kernels_per_step": (counts[1][0] - counts[0][0]) / steps,
+            "launch_calls_per_step": (counts[1][1] - counts[0][1]) / steps,
+            "device_us_per_step": (device_us[1] - device_us[0]) / steps}
+
+
+def tacotron_phases(dev, wn_cfg, gen, smi) -> dict:
+    """text -> mel on the card at the both_r2 width (seeded weights), its
+    f32 decode against the CPU's, text -> wav through the bf16 generator
+    ``gen`` (the generation kernel's MoL bf16 variant), and the decode's
+    times.  Returns the numbers for the ``tacotron`` line, with the
+    kernel's launches on the text -> wav path under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.config import (
+        BOTH_R2, Config)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        seeded_tacotron_params)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+        Synthesizer, attention_trim_index)
+
+    out = {}
+    cfg = Config(audio=wn_cfg.audio, tacotron=BOTH_R2)
+    cfg32 = dataclasses.replace(cfg, tacotron=dataclasses.replace(
+        BOTH_R2, compute_dtype="float32"))
+    params = seeded_tacotron_params(BOTH_R2, seed=0, audio=cfg.audio)
+    r, iters = BOTH_R2.reduction_factor, BOTH_R2.max_iters
+    a = cfg.audio
+    with phase("Tacotron: text -> mel on the card (both_r2 width, bf16, "
+               "prenet dropout on)"):
+        synth = Synthesizer(cfg, params, device=dev)
+        if synth.model.dtype != torch.bfloat16:
+            raise AssertionError("both_r2 does not decode in bf16")
+        inputs, lengths = synth._prepare_inputs(TEXTS)
+        t0 = time.perf_counter()
+        res = synth.synthesize(TEXTS, speaker_ids=SPEAKERS, rng_seed=0)
+        log(f"  4 texts (ids padded to {inputs.shape[1]}, lengths "
+            f"{lengths.tolist()}), {iters} steps: "
+            f"{time.perf_counter() - t0:.3f}s with the first call's set-up")
+        for i, x in enumerate(res):
+            n = min(iters * r, attention_trim_index(
+                x["alignment"], int(lengths[i]), r))
+            if x["mel"].shape != (n, a.num_mels) or x["linear"].shape != (
+                    n, a.num_freq):
+                raise AssertionError(f"text {i}: mel {x['mel'].shape}, "
+                                     f"linear {x['linear'].shape}, want {n}")
+            if x["alignment"].shape != (inputs.shape[1], iters):
+                raise AssertionError(f"text {i}: alignment "
+                                     f"{x['alignment'].shape}")
+            if not (np.isfinite(x["mel"]).all()
+                    and np.isfinite(x["linear"]).all()):
+                raise AssertionError(f"text {i}: output not finite")
+            al = x["alignment"]
+            col = al.sum(0)
+            if al.min() < 0 or al.max() > 1 or col.max() > 1 + ALIGN_SUM_TOL:
+                raise AssertionError(f"text {i}: alignments outside [0, 1] "
+                                     f"or a column sums to {col.max()}")
+            log(f"  text {i} (speaker {SPEAKERS[i]}): kept {n} of "
+                f"{iters * r} frames; mel in [{x['mel'].min():.3f}, "
+                f"{x['mel'].max():.3f}], std {x['mel'].std():.4f}; "
+                f"alignments in [{al.min():.2e}, {al.max():.3f}], column "
+                f"sums <= {col.max():.6f}")
+        again = synth.synthesize(TEXTS, speaker_ids=SPEAKERS, rng_seed=0)
+        other = synth.synthesize(TEXTS, speaker_ids=SPEAKERS, rng_seed=1,
+                                 attention_trim=False)
+        for x, y in zip(res, again):
+            if not np.array_equal(x["mel"], y["mel"]):
+                raise AssertionError("the same rng_seed gave another mel")
+        n0 = res[0]["mel"].shape[0]
+        d = float(np.abs(other[0]["mel"][:n0] - res[0]["mel"]).max())
+        if d == 0.0:
+            raise AssertionError("another rng_seed gave the same mel")
+        log(f"  rng_seed 0 twice: equal mels; rng_seed 1: max abs "
+            f"difference {d:.3f}")
+
+    with phase("Tacotron deterministic decode (dropout off): card vs CPU, "
+               "f32 and bf16, 200 steps"):
+        spk = np.asarray(SPEAKERS)
+        run = {}
+        for c in (cfg32, cfg):
+            for d in (dev, torch.device("cpu")):
+                model = Synthesizer(c, params, device=d).model
+                with torch.no_grad():
+                    o = model(torch.from_numpy(inputs).long().to(d),
+                              torch.from_numpy(lengths).long().to(d),
+                              torch.from_numpy(spk).to(d))
+                run[c.tacotron.compute_dtype, d.type] = {
+                    k: v.float().cpu().numpy() for k, v in o.items()}
+        for key, o in run.items():
+            if any(not np.isfinite(v).all() for v in o.values()):
+                raise AssertionError(f"{key} decode not finite")
+        card, cpu = run["float32", dev.type], run["float32", "cpu"]
+        errs = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu}
+        log(f"  f32 max abs err card vs CPU: {errs} (bound "
+            f"{TACO_F32_TOL:g})")
+        if max(errs.values()) > TACO_F32_TOL:
+            raise AssertionError("the card's f32 decode differs from the "
+                                 "CPU's")
+        out["f32_card_vs_cpu_max_abs_err"] = errs
+        card16, cpu16 = run["bfloat16", dev.type], run["bfloat16", "cpu"]
+        bf16 = {}
+        for k in cpu:
+            d_card = float(np.abs(card16[k] - cpu16[k]).mean())
+            d_noise = float(np.abs(cpu16[k] - cpu[k]).mean())
+            bf16[k] = {"card_vs_cpu": d_card, "cpu_bf16_vs_f32": d_noise}
+            log(f"  bf16 {k}: mean abs card vs CPU {d_card:.3e}, CPU bf16 "
+                f"vs f32 {d_noise:.3e} (bound {TACO_BF16_RATIO:g}x)")
+            if not 0 < d_noise or d_card > TACO_BF16_RATIO * d_noise:
+                raise AssertionError(f"the card's bf16 decode ({k}) is "
+                                     "farther from the CPU's than bf16 "
+                                     "rounding")
+        out["bf16_card_vs_cpu_mean_abs_err"] = bf16
+
+    with phase("text -> wav on the card: Tacotron bf16, then one launch of "
+               "the generation kernel (wn_moon width, bf16)"):
+        sr, hop = a.sample_rate, a.hop_size
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = synth.synthesize(TEXTS, speaker_ids=SPEAKERS, rng_seed=0)
+        wavs = gen.generate([x["mel"] for x in res], seed=0)
+        dt = time.perf_counter() - t0
+        launches = dict(wavenet_generate.variant_launches)
+        log(f"  launches on the text -> wav path: {launches}")
+        if launches != {"mol-bfloat16": 1}:
+            raise AssertionError("text -> wav did not launch the bf16 MoL "
+                                 "kernel once")
+        for x, w in zip(res, wavs):
+            if w.shape != (x["mel"].shape[0] * hop,):
+                raise AssertionError(f"wav length {w.shape}")
+            if not np.isfinite(w).all() or np.abs(w).max() > 1:
+                raise AssertionError("wav not finite in [-1, 1]")
+        audio_s = sum(len(w) for w in wavs) / sr
+        longest = max(len(w) for w in wavs) / sr
+        log(f"  4 texts -> {audio_s:.3f} s of audio (longest {longest:.3f} "
+            f"s) in {dt:.3f} s wall = {audio_s / dt:.3f}x realtime "
+            f"aggregate, {longest / dt:.3f}x for the longest stream "
+            f"[{smi}]")
+        out["text_to_wav"] = {"wall_s": dt, "audio_s": audio_s,
+                              "x_realtime": audio_s / dt,
+                              "x_realtime_longest": longest / dt}
+
+    with phase("Tacotron decode timing (CUDA events, after a warm-up)"), \
+            torch.no_grad():
+        models = {"float32": Synthesizer(cfg32, params, device=dev).model,
+                  "bfloat16": synth.model}
+        timing = {}
+        for name, model in models.items():
+            for B in (1, 4):
+                x = torch.from_numpy(inputs[:B]).long().to(dev)
+                ln = torch.from_numpy(lengths[:B]).long().to(dev)
+                sp = torch.from_numpy(np.asarray(SPEAKERS[:B])).to(dev)
+                g = torch.Generator(dev).manual_seed(0)
+                request = lambda: model(x, ln, sp, generator=g)
+                request()
+                req = [cuda_ms(request) for _ in range(TACO_REPS)]
+                enc = model.encode(x, ln, sp)
+                masks = model.draw_prenet_masks(iters, B, g)
+                loop = lambda: model.decoder(enc, iters, masks)
+                loop()
+                loops = [cuda_ms(loop) for _ in range(TACO_REPS)]
+                req_ms, loop_ms = np.mean(req), np.mean(loops)
+                count = decoder_launches(model, enc, masks, 20)
+                timing[f"{name}_B{B}"] = dict(
+                    ms_per_request=req_ms, decoder_ms=loop_ms,
+                    ms_per_step=loop_ms / iters,
+                    request_ms_range=[min(req), max(req)],
+                    decoder_ms_range=[min(loops), max(loops)], **count)
+                log(f"  {name} B={B}: {req_ms:.2f} ms per request (reps "
+                    f"{min(req):.2f}-{max(req):.2f}), decoder loop "
+                    f"{loop_ms:.2f} ms (reps {min(loops):.2f}-"
+                    f"{max(loops):.2f}) = {loop_ms / iters:.3f} ms per "
+                    f"step; CUDA kernels per step "
+                    f"{count['kernels_per_step'] or 'not measured'} "
+                    f"({count['launch_calls_per_step']} launch calls), "
+                    f"device time per step "
+                    f"{count['device_us_per_step'] or 'not measured'} us "
+                    f"[{smi}]")
+        out["decode"] = timing
+    out["launches"] = launches
+    return out
 
 
 def main() -> int:
@@ -503,6 +737,9 @@ def main() -> int:
             "to speaker_id=1 on the same seed")
         del gen_s
 
+    taco = tacotron_phases(dev, cfg, gen, smi)
+    text_launches = taco.pop("launches")
+
     timing = {}
     with phase("kernel timing at the main path's shapes"), torch.no_grad():
         B = len(mels)
@@ -585,6 +822,7 @@ def main() -> int:
             "bound_ms": max(t["t_ops"], t["t_bytes"]),
             "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
             "library_ms": None,
+            "launches_text_to_wav": text_launches.get(v, 0),
             "side_by_side_steps": SIDE_T,
             "us_per_step": side[v]["kernel"],
             "parent_us_per_step": side[v]["parent"],
@@ -593,6 +831,7 @@ def main() -> int:
             entry["class_agreement"] = agreement[v]
         kernels.append(entry)
     log(f"total wall time {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"tacotron": taco}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

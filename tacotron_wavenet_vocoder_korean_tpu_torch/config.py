@@ -1,11 +1,13 @@
-"""Configuration for the vocoder serving path: the audio and WaveNet groups
-of ``params.json``.
+"""Configuration for the serving paths: the audio, Tacotron and WaveNet
+groups of ``params.json``.
 
-A copy of what this slice needs from the JAX package's ``config.py``
-(``AudioConfig``, ``WaveNetConfig`` with ``receptive_field``, ``from_dict``,
-``load_config``), so the port reads the same run-dir contract without
-importing the JAX package.  Unknown keys and the other groups
-(``tacotron``, ``train``) are ignored.
+A copy of what the port needs from the JAX package's ``config.py``
+(``AudioConfig``, ``TacotronConfig``, ``WaveNetConfig`` with
+``receptive_field``, ``from_dict``, ``load_config``), so the port reads the
+same run-dir contract without importing the JAX package.  Unknown keys and
+the ``train`` group are ignored.  ``BOTH_R2`` is the Tacotron group of the
+committed ``artifacts/both_r2.ckpt.tar.gz``, for machines that do not hold
+the tarball.
 """
 from __future__ import annotations
 
@@ -20,14 +22,104 @@ from typing import Any, Dict, Tuple
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """The audio parameters generation reads (sample rate, hop, mel
-    normalisation for silence padding)."""
+    """The audio parameters serving reads (sample rate, hop, mel and
+    linear widths, mel normalisation for silence padding)."""
 
     sample_rate: int = 24000
     hop_size: int = 300
+    fft_size: int = 2048
     num_mels: int = 80
     symmetric_mels: bool = True
     max_abs_value: float = 4.0
+
+    @property
+    def num_freq(self) -> int:
+        return self.fft_size // 2 + 1
+
+
+@dataclass(frozen=True)
+class TacotronConfig:
+    """Tacotron-1 hyperparameters: the JAX ``TacotronConfig``'s fields and
+    defaults, training fields included, so a ``params.json`` group reads
+    the same in both packages."""
+
+    cleaners: str = "korean_cleaners"
+
+    # multi-speaker conditioning: 'single' | 'simple' | 'deepvoice'
+    model_type: str = "deepvoice"
+    num_speakers: int = 1
+    speaker_embedding_size: int = 16
+
+    embedding_size: int = 256
+    dropout_prob: float = 0.5
+
+    # Encoder
+    enc_prenet_sizes: Tuple[int, ...] = (256, 128)
+    enc_bank_size: int = 16
+    enc_bank_channel_size: int = 128
+    enc_maxpool_width: int = 2
+    enc_highway_depth: int = 4
+    enc_rnn_size: int = 128
+    enc_proj_sizes: Tuple[int, ...] = (128, 128)
+    enc_proj_width: int = 3
+
+    # Attention (the port decodes with bah_mon_norm only)
+    attention_type: str = "bah_mon_norm"
+    attention_size: int = 256
+    attention_state_size: int = 256
+
+    # Decoder
+    dec_layer_num: int = 2
+    dec_rnn_size: int = 256
+    dec_prenet_sizes: Tuple[int, ...] = (256, 128)
+    # Decoder-prenet dropout stays live at inference when this is set and
+    # the caller passes a generator.
+    dec_prenet_dropout_inference: bool = True
+
+    # Post-net CBHG
+    post_bank_size: int = 8
+    post_bank_channel_size: int = 128
+    post_maxpool_width: int = 2
+    post_highway_depth: int = 4
+    post_rnn_size: int = 128
+    post_proj_sizes: Tuple[int, ...] = (256, 80)
+    post_proj_width: int = 3
+
+    reduction_factor: int = 5
+
+    # Scheduled sampling (training only)
+    scheduled_sampling: bool = False
+    ss_final_prob: float = 0.7
+    ss_start_step: int = 10000
+    ss_ramp_steps: int = 20000
+
+    min_tokens: int = 30
+    min_iters: int = 30
+    max_iters: int = 200
+
+    # 'bfloat16': modules compute in bf16 from f32 parameters, attention
+    # math and returned outputs stay f32; 'float32' is exact.
+    compute_dtype: str = "float32"
+    scan_unroll: int = 1              # an XLA scheduling knob; unused here
+    fused_rnn: bool = False
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    initial_learning_rate: float = 1e-3
+    decay_learning_rate_mode: int = 0
+    batch_size: int = 32
+    prioritize_loss: bool = False
+    initial_data_greedy: bool = True
+    initial_phase_step: int = 8000
+    main_data_greedy_factor: float = 0.0
+    main_data: Tuple[str, ...] = ("",)
+
+
+# The ``tacotron`` group of artifacts/both_r2.ckpt.tar.gz:params.json (a
+# CPU test holds the two equal).
+BOTH_R2 = TacotronConfig(
+    model_type="deepvoice", num_speakers=2, speaker_embedding_size=16,
+    attention_type="bah_mon_norm", compute_dtype="bfloat16",
+    dec_prenet_dropout_inference=True, fused_rnn=True, scan_unroll=8)
 
 
 @dataclass(frozen=True)
@@ -71,6 +163,7 @@ class WaveNetConfig:
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     wavenet: WaveNetConfig = field(default_factory=WaveNetConfig)
+    tacotron: TacotronConfig = field(default_factory=TacotronConfig)
 
     def __post_init__(self):
         w = self.wavenet
@@ -96,7 +189,8 @@ def _coerce(dc_cls, data: Dict[str, Any]):
 
 def from_dict(data: Dict[str, Any]) -> Config:
     return Config(audio=_coerce(AudioConfig, data.get("audio", {})),
-                  wavenet=_coerce(WaveNetConfig, data.get("wavenet", {})))
+                  wavenet=_coerce(WaveNetConfig, data.get("wavenet", {})),
+                  tacotron=_coerce(TacotronConfig, data.get("tacotron", {})))
 
 
 def load_config(path: str) -> Config:

@@ -1,6 +1,8 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and float32 kept float32 on
+the card."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -16,3 +18,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "no CUDA device found; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Hold convolutions and matmuls to f32 for the duration of a call:
+    cuDNN runs f32 convolutions in TF32 by default on Ampere and later
+    cards, and a caller may have let cuBLAS do the same for matmuls.  The
+    caller's settings are restored on exit."""
+    conv, matmul = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul

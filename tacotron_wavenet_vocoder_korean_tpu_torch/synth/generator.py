@@ -15,7 +15,6 @@ default on an accelerator and its f32 scan sampler on the CPU.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -24,7 +23,7 @@ import torch
 
 from ..config import Config, load_config
 from ..convert import gc_enabled, params_from_npz, seeded_params
-from ..device import resolve_device
+from ..device import no_tf32, resolve_device
 from ..dsp.audio_io import save_wav
 from ..dsp.mulaw import inv_mulaw, inv_mulaw_quantize, mulaw, mulaw_quantize
 from ..models.wavenet import Params, Upsampler
@@ -32,23 +31,6 @@ from ..ops.wavenet_gen import (incremental_generate_cuda,
                                 kernel_limits_error, pack_params)
 
 MAX_STREAMS = 8
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """Hold the upsampler's convolutions and the lc projection to f32 for
-    the duration of a call: cuDNN runs f32 convolutions in TF32 by default
-    on Ampere and later cards, and a caller may have let cuBLAS do the same
-    for matmuls.  The caller's settings are restored on exit."""
-    conv, matmul = (torch.backends.cudnn.allow_tf32,
-                    torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 def batch_mels(mels: Sequence[np.ndarray], pad_value: float
@@ -186,7 +168,7 @@ class WaveNetGenerator:
             seed_audio = seed_audio[:, -keep:].contiguous().to(dev)
 
         gen = torch.Generator(device=dev).manual_seed(seed)
-        with _no_tf32():
+        with no_tf32():
             lc = self.upsampler(torch.from_numpy(batch).to(dev))
             samples = incremental_generate_cuda(
                 self.cfg.wavenet, self.packed, lc, generator=gen, gc=gc,

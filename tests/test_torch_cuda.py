@@ -1,5 +1,6 @@
 """PyTorch port: the CUDA generation kernel against its plain twin on the
-card (tests marked ``cuda``; they skip without a GPU), and the twin at the
+card (tests marked ``cuda``; they skip without a GPU), the Tacotron decode
+on the card against the same decode on the CPU, and the twin at the
 kernel's own widths (R = D = 32) against the JAX scan sampler where JAX is
 installed.
 
@@ -16,10 +17,12 @@ import torch
 
 from tacotron_wavenet_vocoder_korean_tpu_torch import convert
 from tacotron_wavenet_vocoder_korean_tpu_torch.config import (
-    AudioConfig, Config, WaveNetConfig)
+    BOTH_R2, AudioConfig, Config, WaveNetConfig)
 from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
 from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
     WaveNetGenerator)
+from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+    Synthesizer)
 
 # A stack the CUDA kernel takes (R = D = 32, W = 32), cut to 6 layers and
 # S = 64; and the same stack with the softmax head (W = 2, Q = 256).
@@ -196,6 +199,48 @@ def test_cuda_speaker_id_out_of_range_leaves_the_card_working():
     wav = gen.generate(mel, speaker_id=-1)
     torch.cuda.synchronize()
     assert wav.shape == (40,) and np.isfinite(wav).all()
+
+
+# both_r2 widths, f32, no prenet dropout: a deterministic decode.
+TACO_F32 = Config(tacotron=dataclasses.replace(
+    BOTH_R2, compute_dtype="float32", dec_prenet_dropout_inference=False,
+    max_iters=60))
+TEXTS = ["존경하는 국민 여러분", "KIA 3대가 12시에 왔다"]
+
+
+@pytest.mark.cuda
+def test_cuda_tacotron_f32_decode_matches_cpu():
+    """2 texts x 60 steps at the both_r2 widths, f32, TF32 left at torch's
+    defaults (the Synthesizer holds it off): mel, linear and alignments
+    within 1e-4 of the CPU's (sums in another order; the decoder contracts
+    such differences)."""
+    _cuda()
+    params = convert.seeded_tacotron_params(TACO_F32.tacotron, 0)
+    out = {d: Synthesizer(TACO_F32, params, device=d).synthesize(
+        TEXTS, speaker_ids=[0, 1], attention_trim=False)
+        for d in ("cuda", "cpu")}
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert card["mel"].shape == (300, 80)
+        for key in ("mel", "linear", "alignment"):
+            np.testing.assert_allclose(card[key], cpu[key], rtol=0,
+                                       atol=1e-4, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_cuda_tacotron_speaker_id_out_of_range_raises_on_the_host():
+    """Speaker id 2 of 2 raises IndexError before any launch; the card
+    decodes after it, and -1 is the last speaker."""
+    _cuda()
+    synth = Synthesizer(TACO_F32, convert.seeded_tacotron_params(
+        TACO_F32.tacotron, 0), device="cuda")
+    with pytest.raises(IndexError):
+        synth.synthesize(TEXTS[:1], speaker_ids=[2], max_iters=4)
+    a = synth.synthesize(TEXTS[:1], speaker_ids=[-1], max_iters=4,
+                         attention_trim=False)[0]["mel"]
+    b = synth.synthesize(TEXTS[:1], speaker_ids=[1], max_iters=4,
+                         attention_trim=False)[0]["mel"]
+    assert a.shape == (20, 80) and np.isfinite(a).all()
+    np.testing.assert_array_equal(a, b)
 
 
 def test_twin_at_kernel_width_matches_jax_scan_sampler():
