@@ -6,25 +6,33 @@ vocoder serving path (mel -> wav) through ``WaveNetGenerator``, check that
 an out-of-range speaker id leaves the card working, drive text -> mel
 (``Synthesizer``, Tacotron at the ``both_r2`` width) and text -> wav (its
 mels through the bf16 generator), hold the card's f32 Tacotron decode
-against the CPU's, time the decode, time the kernel, and time the previous
-step design (``csrc/wavenet_gen_block.cu``) beside it.
+against the CPU's, time the decode; then serve the trained checkpoints
+(read by the port's own zstd / OCDBT / zarr reader, timed): trained
+``wn_moon`` through both MoL variants against their twins and on the
+committed mel, with its MCD to the wav the JAX system made (beside the
+seeded weights'), trained ``both_r2`` card against CPU, its served decode
+and its DTW distance to the committed mel, and text -> wav with both
+trained models; finally time the kernel, and the previous step design
+(``csrc/wavenet_gen_block.cu``) beside it.
 
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``; exits non-zero, printing no result, when
-either is missing or when this file stands outside the repository.  Weights
-are random, made from a seed at the full width of the repository's
-``wn_moon`` WaveNet (its ``params.json`` is read from the checkpoint
-tarball): as it is (raw input, MoL head), and switched to ``mulaw-quantize``
-(one-hot input, softmax head over 256 classes).  The vocoder's requests are
-the committed Tacotron mels ``samples/both_r2/{0,1,2,3}.mel.npy``; the
-Tacotron's are four Korean texts (two per speaker, with digits and Latin
-letters), decoded with seeded weights over the served 200 steps in bf16
-with prenet dropout, as ``both_r2``'s ``params.json`` asks (the port's
-``config.BOTH_R2``; the tarball itself is not copied to the card).  Wavs go
-to a temporary directory that is removed at the end.  A ``tacotron`` JSON
-line carries the decode's numbers; the last line is
-``{"ok": true, "device": {...}}``.
+either is missing or when this file stands outside the repository.  The
+seeded phases use random weights, made from a seed at the full width of
+the repository's ``wn_moon`` WaveNet (its ``params.json`` is read from the
+checkpoint tarball): as it is (raw input, MoL head), and switched to
+``mulaw-quantize`` (one-hot input, softmax head over 256 classes).  The
+vocoder's requests are the committed Tacotron mels
+``samples/both_r2/{0,1,2,3}.mel.npy``; the Tacotron's are four Korean
+texts (two per speaker, with digits and Latin letters), decoded with
+seeded weights over the served 200 steps in bf16 with prenet dropout, as
+``both_r2``'s ``params.json`` asks (the port's ``config.BOTH_R2``).  The
+trained phases read ``artifacts/wn_moon.ckpt.tar.gz`` (``ema_params``) and
+``artifacts/both_r2.ckpt.tar.gz`` (``params``, ``batch_stats``).  Wavs and
+unpacked checkpoints go to temporary directories that are removed.  A
+``tacotron`` and a ``trained`` JSON line carry those phases' numbers; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -47,6 +55,19 @@ TPU_KERNEL = "tacotron_wavenet_vocoder_korean_tpu/ops/wavenet_pallas.py:510"
 MELS = [os.path.join(REPO, "samples", "both_r2", f"{i}.mel.npy")
         for i in range(4)]
 CONFIG = os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz")
+# The trained checkpoints, and what the JAX system made with them: text 0
+# of samples/README.md (speaker 0) through Tacotron (E2E_MEL, also
+# samples/both_r2/0.mel.npy) and the WaveNet vocoder (E2E_WAV).
+WN_MOON = CONFIG
+BOTH_R2 = os.path.join(REPO, "artifacts", "both_r2.ckpt.tar.gz")
+TEXT0 = "존경하는 국민 여러분, 안녕하십니까."
+E2E_MEL = os.path.join(REPO, "samples", "e2e_both_r2_wn_moon", "0.mel.npy")
+E2E_WAV = os.path.join(REPO, "samples", "e2e_both_r2_wn_moon",
+                       "0.wavenet.wav")
+TACO_MEL0 = os.path.join(REPO, "samples", "both_r2", "0.mel.npy")
+# Trained kernel-vs-twin spans start at these frames of E2E_MEL, primed
+# with the committed wav's samples there.
+TRAINED_FRAMES = (20, 60, 100, 140)
 # Published H100 SXM peaks at the 700 W limit: HBM3 bytes/s; f32 FLOP/s
 # outside the tensor cores (the f32 variants' arithmetic); bf16 FLOP/s of
 # the tensor cores (bf16 products summed in f32, the bf16 variants' work).
@@ -153,11 +174,13 @@ def compare_classes(name, got, want, min_agree):
     return err, agree
 
 
-def compare_bf16(name, k16, t16, k32, classes):
+def compare_bf16(name, k16, t16, k32, classes, early_tol=BF16_EARLY_TOL):
     """bf16 kernel ``k16`` against its bf16 twin ``t16``, measured against
     the twin's own distance from the f32 kernel ``k32`` (see BF16_RATIO).
-    MoL: mean abs error and share of component flips; softmax: share of
-    differing classes.  Returns (max abs error, class agreement or None)."""
+    MoL: mean abs error and share of component flips, and the largest
+    error over the first BF16_EARLY steps at most ``early_tol``; softmax:
+    share of differing classes.  Returns (max abs error, class agreement
+    or None)."""
     if classes:
         d_kt = float((k16 != t16).float().mean())
         d_tf = float((t16 != k32).float().mean())
@@ -174,12 +197,12 @@ def compare_bf16(name, k16, t16, k32, classes):
         jump_tf = float((e_tf > BF16_JUMP).float().mean())
         agree = None
         log(f"  {name}: first {BF16_EARLY} steps max_abs_err {early:.3e} "
-            f"(bound {BF16_EARLY_TOL:g}); mean abs err kernel/twin "
+            f"(bound {early_tol:.3e}); mean abs err kernel/twin "
             f"{mean_kt:.3e} (bound <= {BF16_RATIO:g} x {mean_tf:.3e}, twin "
             f"bf16/f32); flips (>{BF16_JUMP:g}) {jump_kt:.5f} (bound <= "
             f"{BF16_RATIO:g} x {jump_tf:.5f}); max_abs_err "
             f"{float(e_kt.max()):.3e}")
-        ok = (early <= BF16_EARLY_TOL and mean_kt <= BF16_RATIO * mean_tf
+        ok = (early <= early_tol and mean_kt <= BF16_RATIO * mean_tf
               and jump_kt <= BF16_RATIO * jump_tf)
     if not bool(torch.isfinite(k16).all()) or not ok:
         raise AssertionError(f"{name}: bf16 kernel disagrees with its twin")
@@ -426,6 +449,293 @@ def tacotron_phases(dev, wn_cfg, gen, smi) -> dict:
                     f"[{smi}]")
         out["decode"] = timing
     out["launches"] = launches
+    return out
+
+
+def mean_dtw_distance(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean euclidean distance of the frames that DTW pairs (mels
+    [frames, num_mels])."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.utils.metrics import (
+        dtw_path)
+    ia, ib = dtw_path(a, b)
+    return float(np.linalg.norm(a[ia] - b[ib], axis=-1).mean())
+
+
+def read_trained() -> dict:
+    """Read both trained checkpoints with the port's own reader, time it,
+    check every array is finite and every name and shape against the
+    converters.  Returns the reader's numbers."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        flatten, params_from_jax, tacotron_params_from_jax)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.text import TextCodec
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointReader)
+
+    numbers = {}
+    for name, path, items in (
+            ("wn_moon", WN_MOON, ("ema_params", "step")),
+            ("both_r2", BOTH_R2, ("params", "batch_stats", "step"))):
+        t0 = time.perf_counter()
+        with CheckpointReader(path) as reader:
+            t1 = time.perf_counter()
+            cfg = reader.config()
+            tree = reader.restore(items=items)
+            t2 = time.perf_counter()
+            mb = reader.decoded_bytes / 1e6
+        arrays = flatten({k: v for k, v in tree.items() if k != "step"})
+        bad = [k for k, v in arrays.items() if not np.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"{name}: arrays not finite: {bad[:5]}")
+        if name == "wn_moon":
+            params_from_jax(cfg.wavenet, tree["ema_params"])
+        else:
+            tacotron_params_from_jax(
+                cfg.tacotron, tree["params"], tree["batch_stats"], cfg.audio,
+                TextCodec(cfg.tacotron.cleaners).vocab_size)
+        step = int(tree["step"])
+        log(f"  {name} step {step} ({', '.join(items[:-1])}): unpacked in "
+            f"{t1 - t0:.2f}s, restored {len(arrays)} arrays = {mb:.3f} MB "
+            f"decoded in {t2 - t1:.2f}s = {mb / (t2 - t1):.3f} MB/s; all "
+            f"finite, names and shapes as the converter wants")
+        numbers[name] = {"step": step, "arrays": len(arrays),
+                         "decoded_mb": mb, "unpack_s": t1 - t0,
+                         "restore_s": t2 - t1,
+                         "mb_per_s": mb / (t2 - t1)}
+    return numbers
+
+
+def trained_phases(dev, gen_seeded, smi, tmp) -> dict:
+    """The trained checkpoints on the card: read them (the reader timed
+    alone, then the serving entry points), hold both MoL variants against
+    their twins with the trained WaveNet, vocode the committed mel and
+    measure its MCD to the JAX system's wav (beside the seeded weights'),
+    vocode through the CLI, and run text -> mel -> wav with both trained
+    models.  Returns the numbers for the ``trained`` line; ``launches``
+    holds the kernel launches of the trained paths and ``max_abs_err`` the
+    kernel-vs-twin errors."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import generate
+    from tacotron_wavenet_vocoder_korean_tpu_torch.config import BOTH_R2 as B2
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        seeded_tacotron_params)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        generate_plain, pack_params, precompute_lc_proj, wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
+        WaveNetGenerator)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+        Synthesizer, attention_trim_index)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.utils.metrics import mcd
+
+    out = {}
+    with phase("trained checkpoints: read on the card's host"):
+        out["read"] = read_trained()
+    with phase("trained checkpoints: load through the serving entry "
+               "points"):
+        t0 = time.perf_counter()
+        gen = WaveNetGenerator.from_checkpoint(WN_MOON, device=dev)
+        t1 = time.perf_counter()
+        synth = Synthesizer.from_checkpoint(BOTH_R2, device=dev)
+        t2 = time.perf_counter()
+        log(f"  WaveNetGenerator.from_checkpoint (ema_params, step "
+            f"{gen.step}): {t1 - t0:.2f}s; Synthesizer.from_checkpoint "
+            f"(step {synth.step}): {t2 - t1:.2f}s")
+        if (gen.step, synth.step) != (out["read"]["wn_moon"]["step"],
+                                      out["read"]["both_r2"]["step"]):
+            raise AssertionError("the entry points served another step")
+        if gen.weight_dtype != torch.bfloat16 or (
+                synth.model.dtype != torch.bfloat16):
+            raise AssertionError("the trained models do not serve bf16")
+        out["load_s"] = {"wn_moon": t1 - t0, "both_r2": t2 - t1}
+    cfg_w, cfg_t = gen.cfg, synth.cfg
+    a = cfg_w.audio
+    sr, hop = a.sample_rate, a.hop_size
+    mel_e2e = np.load(E2E_MEL).astype(np.float32)
+    wav_e2e = load_wav(E2E_WAV, sr)
+
+    with phase(f"trained wn_moon: kernel vs twin, both MoL variants, full "
+               f"width, B=4, {SPAN} steps teacher-forced"), torch.no_grad():
+        T, f = SPAN, -(-SPAN // hop)
+        lc = gen.upsampler(torch.from_numpy(np.stack(
+            [mel_e2e[s:s + f] for s in TRAINED_FRAMES])).to(dev))[:, :T]
+        primed = torch.from_numpy(np.stack(
+            [wav_e2e[s * hop:s * hop + T] for s in TRAINED_FRAMES],
+            axis=1)).to(dev).contiguous()
+        res = {}
+        for dt in (torch.float32, torch.bfloat16):
+            pk = pack_params(cfg_w.wavenet, gen.params, dt)
+            proj = precompute_lc_proj(pk, lc)
+            for fn in (wavenet_generate, generate_plain):
+                res[fn is wavenet_generate, dt] = fn(
+                    pk, proj, deterministic=True, primed=primed, prime_len=T)
+        torch.cuda.synchronize()
+        err32 = compare("f32, deterministic, teacher-forced",
+                        res[True, torch.float32], res[False, torch.float32])
+        # BF16_EARLY_TOL was set on seeded weights, whose output layer is
+        # scaled down; the trained network carries a bf16 rounding step
+        # further, so its early steps are held, as the other bf16 bounds
+        # are, to BF16_RATIO times the twin's own distance from f32 there.
+        early_noise = float((res[False, torch.bfloat16]
+                             - res[True, torch.float32]
+                             )[:, :BF16_EARLY].abs().max())
+        log(f"  bf16 twin vs f32 kernel, first {BF16_EARLY} steps: max abs "
+            f"{early_noise:.3e}")
+        err16, _ = compare_bf16("bf16, deterministic, teacher-forced",
+                                res[True, torch.bfloat16],
+                                res[False, torch.bfloat16],
+                                res[True, torch.float32], classes=False,
+                                early_tol=BF16_RATIO * early_noise)
+        out["kernel_vs_twin"] = {"mol-float32_max_abs_err": err32,
+                                 "mol-bfloat16_max_abs_err": err16}
+        if float(res[True, torch.float32].std()) == 0.0:
+            raise AssertionError("trained teacher-forced output is constant")
+        del res, proj, lc, primed
+
+    launches = {}
+    with phase("trained wn_moon: vocode the committed mel (bf16) and its "
+               "MCD to the JAX system's wav; the CLI"):
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = gen.generate(mel_e2e, seed=0)
+        dt = time.perf_counter() - t0
+        launches["vocode"] = dict(wavenet_generate.variant_launches)
+        if launches["vocode"] != {"mol-bfloat16": 1}:
+            raise AssertionError(f"vocoding launched {launches['vocode']}")
+        n = mel_e2e.shape[0] * hop
+        if wav.shape != (n,) or not np.isfinite(wav).all() or (
+                np.abs(wav).max() > 1):
+            raise AssertionError(f"trained wav {wav.shape} not {n} finite "
+                                 "samples in [-1, 1]")
+        seeded = gen_seeded.generate(mel_e2e, seed=0)
+        mcd_t = mcd(wav, wav_e2e, a)
+        mcd_s = mcd(seeded, wav_e2e, a)
+        context = {}
+        for key, (fname, field) in {
+                "wn_moon": ("wn_moon.eval.json", "wavenet_mcd_db"),
+                "both_r2": ("both_r2.eval.json", "e2e_mcd_db")}.items():
+            with open(os.path.join(REPO, "artifacts", fname)) as fh:
+                context[key] = json.load(fh).get(field)
+        log(f"  {mel_e2e.shape[0]} frames -> {n} samples in {dt:.3f}s = "
+            f"{n / dt / sr:.3f}x realtime [{smi}]; std {wav.std():.4f}")
+        log(f"  MCD to the committed 0.wavenet.wav: trained {mcd_t:.3f} dB, "
+            f"seeded weights {mcd_s:.3f} dB (gate: trained < seeded); the "
+            f"repo's own figures, other utterances and steps, not bounds: "
+            f"wn_moon.eval.json wavenet_mcd_db {context['wn_moon']}, "
+            f"both_r2.eval.json e2e_mcd_db {context['both_r2']}")
+        if not mcd_t < mcd_s:
+            raise AssertionError("the trained vocoder is no closer to the "
+                                 "JAX system's wav than seeded weights")
+        out["vocode"] = {"samples": n, "wall_s": dt, "x_realtime": n / dt / sr,
+                         "mcd_trained_db": mcd_t, "mcd_seeded_db": mcd_s,
+                         "repo_eval_json": context}
+        del seeded
+        mel_path = os.path.join(tmp, "cli.mel.npy")
+        wav_path = os.path.join(tmp, "cli.wav")
+        np.save(mel_path, mel_e2e[:20])
+        wavenet_generate.variant_launches.clear()
+        generate.main(["--load_path", WN_MOON, "--mel", mel_path, "--out",
+                       wav_path])
+        launches["cli"] = dict(wavenet_generate.variant_launches)
+        cli_wav = load_wav(wav_path, sr)
+        log(f"  generate.py --load_path (default device): "
+            f"{launches['cli']}, {cli_wav.shape[0]} samples")
+        if launches["cli"] != {"mol-bfloat16": 1} or cli_wav.shape != (
+                20 * hop,):
+            raise AssertionError("the CLI did not vocode on the card")
+
+    with phase("trained both_r2: text -> mel -> wav on the card"), \
+            torch.no_grad():
+        r, iters = cfg_t.tacotron.reduction_factor, cfg_t.tacotron.max_iters
+        cfg32 = dataclasses.replace(cfg_t, tacotron=dataclasses.replace(
+            cfg_t.tacotron, compute_dtype="float32"))
+        params_t = {k: v.cpu() for k, v in synth.model.state_dict().items()}
+        inputs, lengths = synth._prepare_inputs([TEXT0])
+        run = {}
+        for c in (cfg32, cfg_t):
+            for d in (dev, torch.device("cpu")):
+                model = Synthesizer(c, params_t, device=d).model
+                o = model(torch.from_numpy(inputs).long().to(d),
+                          torch.from_numpy(lengths).long().to(d),
+                          torch.zeros(1, dtype=torch.long, device=d))
+                run[c.tacotron.compute_dtype, d.type] = {
+                    k: v.float().cpu().numpy() for k, v in o.items()}
+        if any(not np.isfinite(v).all() for o in run.values()
+               for v in o.values()):
+            raise AssertionError("a trained decode is not finite")
+        card, cpu = run["float32", dev.type], run["float32", "cpu"]
+        errs = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu}
+        log(f"  dropout off, f32 max abs err card vs CPU: {errs} (bound "
+            f"{TACO_F32_TOL:g})")
+        if max(errs.values()) > TACO_F32_TOL:
+            raise AssertionError("the card's trained f32 decode differs from "
+                                 "the CPU's")
+        bf16 = {}
+        for k in cpu:
+            d_card = float(np.abs(run["bfloat16", dev.type][k]
+                                  - run["bfloat16", "cpu"][k]).mean())
+            d_noise = float(np.abs(run["bfloat16", "cpu"][k] - cpu[k]).mean())
+            bf16[k] = {"card_vs_cpu": d_card, "cpu_bf16_vs_f32": d_noise}
+            log(f"  dropout off, bf16 {k}: mean abs card vs CPU {d_card:.3e}"
+                f", CPU bf16 vs f32 {d_noise:.3e} (bound "
+                f"{TACO_BF16_RATIO:g}x)")
+            if not 0 < d_noise or d_card > TACO_BF16_RATIO * d_noise:
+                raise AssertionError(f"the card's trained bf16 decode ({k}) "
+                                     "is farther from the CPU's than bf16 "
+                                     "rounding")
+        out["decode_card_vs_cpu"] = {"f32_max_abs_err": errs,
+                                     "bf16_mean_abs_err": bf16}
+
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = synth.synthesize([TEXT0], speaker_ids=[0], rng_seed=0)[0]
+        t1 = time.perf_counter()
+        wav = gen.generate(res["mel"], seed=0)
+        t2 = time.perf_counter()
+        launches["text_to_wav"] = dict(wavenet_generate.variant_launches)
+        if launches["text_to_wav"] != {"mol-bfloat16": 1}:
+            raise AssertionError(f"text -> wav launched "
+                                 f"{launches['text_to_wav']}")
+        trim = attention_trim_index(res["alignment"], int(lengths[0]), r)
+        log(f"  served decode (bf16, prenet dropout): trim index {trim} of "
+            f"{iters * r} frames, kept {res['mel'].shape[0]}")
+        if not trim < iters * r:
+            raise AssertionError("the trained decode did not stop before "
+                                 "max_iters")
+        if wav.shape != (res["mel"].shape[0] * hop,) or not (
+                np.isfinite(wav).all() and np.abs(wav).max() <= 1):
+            raise AssertionError("trained text -> wav not finite in [-1, 1]")
+        seeded_synth = Synthesizer(
+            dataclasses.replace(cfg_t, tacotron=B2),
+            seeded_tacotron_params(B2, seed=0, audio=cfg_t.audio), device=dev)
+        seeded_mel = seeded_synth.synthesize([TEXT0], speaker_ids=[0],
+                                             rng_seed=0)[0]["mel"]
+        ref_mel = np.load(TACO_MEL0)
+        dtw_t = mean_dtw_distance(res["mel"], ref_mel)
+        dtw_s = mean_dtw_distance(seeded_mel, ref_mel)
+        log(f"  DTW mean frame distance to samples/both_r2/0.mel.npy "
+            f"({ref_mel.shape[0]} frames, an earlier step): trained "
+            f"{dtw_t:.4f} ({res['mel'].shape[0]} frames), seeded {dtw_s:.4f} "
+            f"({seeded_mel.shape[0]} frames) (gate: trained < seeded)")
+        if not dtw_t < dtw_s:
+            raise AssertionError("the trained mel is no closer to the "
+                                 "committed mel than the seeded one")
+        mcd_e2e = mcd(wav, wav_e2e, a)
+        audio_s = len(wav) / sr
+        log(f"  text -> wav with both trained models: {audio_s:.3f} s of "
+            f"audio in {t2 - t0:.3f} s (Tacotron {t1 - t0:.3f} s) = "
+            f"{audio_s / (t2 - t0):.3f}x realtime [{smi}]; MCD to the "
+            f"committed e2e 0.wavenet.wav {mcd_e2e:.3f} dB")
+        out["text_to_wav"] = {
+            "trim_index": trim, "frames": int(res["mel"].shape[0]),
+            "dtw_trained": dtw_t, "dtw_seeded": dtw_s,
+            "wall_s": t2 - t0, "tacotron_s": t1 - t0, "audio_s": audio_s,
+            "x_realtime": audio_s / (t2 - t0), "mcd_e2e_db": mcd_e2e}
+    out["launches"] = launches
+    out["max_abs_err"] = out["kernel_vs_twin"]
     return out
 
 
@@ -739,6 +1049,13 @@ def main() -> int:
 
     taco = tacotron_phases(dev, cfg, gen, smi)
     text_launches = taco.pop("launches")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        trained = trained_phases(dev, gen, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    trained_launches = trained.pop("launches")
+    trained_errors = trained.pop("max_abs_err")
 
     timing = {}
     with phase("kernel timing at the main path's shapes"), torch.no_grad():
@@ -829,9 +1146,14 @@ def main() -> int:
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]
+        if f"{v}_max_abs_err" in trained_errors:
+            entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
+            entry["launches_trained"] = sum(
+                x.get(v, 0) for x in trained_launches.values())
         kernels.append(entry)
     log(f"total wall time {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"tacotron": taco}))
+    print(json.dumps({"trained": trained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,13 +22,22 @@ from typing import Any, Dict, Tuple
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """The audio parameters serving reads (sample rate, hop, mel and
-    linear widths, mel normalisation for silence padding)."""
+    """The audio parameters serving and the mel analysis read (sample
+    rate, hop, window, mel and linear widths, pre-emphasis, the dB and
+    normalisation chain)."""
 
     sample_rate: int = 24000
     hop_size: int = 300
     fft_size: int = 2048
+    win_size: int = 1200
     num_mels: int = 80
+
+    preemphasize: bool = True
+    preemphasis: float = 0.97
+    min_level_db: float = -100.0
+    ref_level_db: float = 20.0
+    signal_normalization: bool = True
+    allow_clipping_in_normalization: bool = True
     symmetric_mels: bool = True
     max_abs_value: float = 4.0
 

@@ -1,0 +1,150 @@
+"""The analysis half of the JAX package's ``dsp/stft.py``: waveform ->
+normalized mel spectrogram, in plain PyTorch (numpy for the constant
+window and filterbank).
+
+librosa's conventions, as the reference uses them: a periodic Hann window
+of ``win_size`` centred in ``fft_size``, ``center=True`` reflect padding,
+the Slaney mel filterbank (fmin 0, fmax sr/2), amplitude to dB with a
+``min_level_db`` floor, the ``ref_level_db`` shift and the symmetric
+[-max_abs_value, max_abs_value] normalisation.  Computed in the input's
+floating type (float32 as the JAX functions compute).
+
+The synthesis half (``istft``, ``inv_preemphasis``, ``mel_to_linear``)
+and Griffin-Lim are not ported yet.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import AudioConfig
+
+
+@functools.lru_cache(maxsize=8)
+def hann_window(win_size: int, fft_size: int) -> np.ndarray:
+    """Periodic Hann of length ``win_size``, zero-padded to ``fft_size``
+    around its centre (librosa's ``util.pad_center``)."""
+    n = np.arange(win_size)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)
+    lpad = (fft_size - win_size) // 2
+    out = np.zeros(fft_size, dtype=np.float32)
+    out[lpad:lpad + win_size] = w
+    return out
+
+
+def _hz_to_mel(f):
+    """Slaney's mel scale: linear below 1 kHz, logarithmic above."""
+    f = np.asarray(f, dtype=np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    logstep = np.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_hz / f_sp
+                    + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                    f / f_sp)
+
+
+def _mel_to_hz(m):
+    m = np.asarray(m, dtype=np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    f_sp * m)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_basis(sample_rate: int, fft_size: int, num_mels: int,
+              fmin: float = 0.0, fmax: Optional[float] = None) -> np.ndarray:
+    """Slaney mel filterbank [num_mels, fft_size // 2 + 1]
+    (``librosa.filters.mel`` with htk=False, norm='slaney')."""
+    if fmax is None:
+        fmax = sample_rate / 2.0
+    n_freq = fft_size // 2 + 1
+    fftfreqs = np.linspace(0, sample_rate / 2.0, n_freq)
+    hz_pts = _mel_to_hz(np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax),
+                                    num_mels + 2))
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fftfreqs[None, :]
+    weights = np.zeros((num_mels, n_freq), dtype=np.float64)
+    for i in range(num_mels):
+        lower = -ramps[i] / fdiff[i]
+        upper = ramps[i + 2] / fdiff[i + 1]
+        weights[i] = np.maximum(0, np.minimum(lower, upper))
+    # Slaney normalisation: each filter integrates to about the same area.
+    weights *= (2.0 / (hz_pts[2:num_mels + 2] - hz_pts[:num_mels]))[:, None]
+    return weights.astype(np.float32)
+
+
+def preemphasis(wav: torch.Tensor, k: float, enabled: bool = True
+                ) -> torch.Tensor:
+    """y[t] = x[t] - k x[t-1]."""
+    if not enabled:
+        return wav
+    return torch.cat([wav[:1], wav[1:] - k * wav[:-1]])
+
+
+def _frame(y: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """[T] -> [num_frames, frame_length]."""
+    return y.unfold(-1, frame_length, hop)
+
+
+def stft(y: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Complex STFT [num_freq, num_frames], with ``fft_size // 2`` reflect
+    padding on both sides."""
+    pad = cfg.fft_size // 2
+    y = torch.nn.functional.pad(y[None, None], (pad, pad), mode="reflect")[
+        0, 0]
+    frames = _frame(y, cfg.fft_size, cfg.hop_size)
+    win = torch.from_numpy(hann_window(cfg.win_size, cfg.fft_size)).to(
+        y.device, y.dtype)
+    return torch.fft.rfft(frames * win, dim=-1).T
+
+
+def amp_to_db(x: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    min_level = float(np.exp(cfg.min_level_db / 20 * np.log(10)))
+    return 20.0 * torch.log10(torch.clamp(x, min=min_level))
+
+
+def normalize(S: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """dB spectrogram -> [-max_abs_value, max_abs_value] (symmetric) or
+    [0, max_abs_value], clipped when the config says so."""
+    if not cfg.signal_normalization:
+        return S
+    span = -cfg.min_level_db
+    m = cfg.max_abs_value
+    if cfg.symmetric_mels:
+        out = (2 * m) * ((S - cfg.min_level_db) / span) - m
+        lo = -m
+    else:
+        out = m * ((S - cfg.min_level_db) / span)
+        lo = 0.0
+    if cfg.allow_clipping_in_normalization:
+        out = torch.clamp(out, lo, m)
+    return out
+
+
+def denormalize(D: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    if not cfg.signal_normalization:
+        return D
+    span = -cfg.min_level_db
+    m = cfg.max_abs_value
+    if cfg.symmetric_mels:
+        if cfg.allow_clipping_in_normalization:
+            D = torch.clamp(D, -m, m)
+        return (D + m) * span / (2 * m) + cfg.min_level_db
+    if cfg.allow_clipping_in_normalization:
+        D = torch.clamp(D, 0, m)
+    return D * span / m + cfg.min_level_db
+
+
+def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """wav [T] -> normalized mel spectrogram [num_mels, frames]."""
+    D = stft(preemphasis(wav, cfg.preemphasis, cfg.preemphasize), cfg)
+    basis = torch.from_numpy(mel_basis(cfg.sample_rate, cfg.fft_size,
+                                       cfg.num_mels)).to(wav.device, wav.dtype)
+    S = amp_to_db(basis @ D.abs(), cfg) - cfg.ref_level_db
+    return normalize(S, cfg)

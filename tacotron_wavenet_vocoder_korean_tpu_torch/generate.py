@@ -2,14 +2,19 @@
 ``generate.py``).
 
     python -m tacotron_wavenet_vocoder_korean_tpu_torch.generate \\
-        --init_seed 0 --mel samples/both_r2/0.mel.npy --out out.wav
+        --load_path artifacts/wn_moon.ckpt.tar.gz \\
+        --mel samples/e2e_both_r2_wn_moon/0.mel.npy --out out.wav
 
-Weights come from ``--weights`` (an ``.npz`` of JAX-named parameters) or,
-with ``--init_seed N``, are made at full width from a seed.  ``--config``
-names the ``params.json`` (or a checkpoint tarball holding it).  Up to 8
-``--mel`` inputs are vocoded per kernel launch.  ``--temperature`` scales
-the softmax head of a ``mulaw-quantize`` model.  Runs on the GPU (bf16
-weights) unless ``--device cpu`` (f32 weights) is given.
+Weights come from ``--load_path`` (a training run dir or its
+``*.ckpt.tar.gz``: the latest step's ``ema_params``, or its ``params``
+with ``--no_ema``), from ``--weights`` (an ``.npz`` of JAX-named
+parameters) or, with ``--init_seed N``, are made at full width from a
+seed.  ``--config`` names the ``params.json`` (or a run dir or tarball
+holding one); by default the checkpoint's with ``--load_path``, else
+``wn_moon``'s.  Up to 8 ``--mel`` inputs are vocoded per kernel launch.
+``--temperature`` scales the softmax head of a ``mulaw-quantize`` model.
+Runs on the GPU (bf16 weights) unless ``--device cpu`` (f32 weights) is
+given.
 """
 from __future__ import annotations
 
@@ -36,11 +41,16 @@ def out_names(mels: List[str], out: Optional[str]) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--load_path",
+                     help="trained run: run dir or *.ckpt.tar.gz")
     src.add_argument("--weights", help=".npz of JAX-named WaveNet params")
     src.add_argument("--init_seed", type=int,
                      help="seeded full-width weights instead of --weights")
-    p.add_argument("--config", default=DEFAULT_CONFIG,
-                   help="params.json, run dir, or *.ckpt.tar.gz")
+    p.add_argument("--no_ema", action="store_true",
+                   help="with --load_path: raw params instead of the EMA")
+    p.add_argument("--config", default=None,
+                   help="params.json, run dir, or *.ckpt.tar.gz (default: "
+                        "the checkpoint's, else wn_moon's)")
     p.add_argument("--mel", action="append", required=True,
                    help="mel .npy (repeatable)")
     p.add_argument("--out", default=None,
@@ -53,8 +63,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    gen = WaveNetGenerator.load(args.weights, args.config, args.device,
-                                init_seed=args.init_seed)
+    if args.load_path:
+        gen = WaveNetGenerator.from_checkpoint(
+            args.load_path, args.device, use_ema=not args.no_ema,
+            config=args.config)
+    else:
+        gen = WaveNetGenerator.load(args.weights,
+                                    args.config or DEFAULT_CONFIG,
+                                    args.device, init_seed=args.init_seed)
     wav_seed = (load_wav(args.wav_seed, gen.cfg.audio.sample_rate)
                 if args.wav_seed else None)
     outs = out_names(args.mel, args.out)

@@ -22,13 +22,15 @@ import numpy as np
 import torch
 
 from ..config import Config, load_config
-from ..convert import gc_enabled, params_from_npz, seeded_params
+from ..convert import (gc_enabled, params_from_jax, params_from_npz,
+                       seeded_params)
 from ..device import no_tf32, resolve_device
 from ..dsp.audio_io import save_wav
 from ..dsp.mulaw import inv_mulaw, inv_mulaw_quantize, mulaw, mulaw_quantize
 from ..models.wavenet import Params, Upsampler
 from ..ops.wavenet_gen import (incremental_generate_cuda,
                                 kernel_limits_error, pack_params)
+from ..train.checkpoints import CheckpointReader
 
 MAX_STREAMS = 8
 
@@ -78,6 +80,8 @@ class WaveNetGenerator:
     does not take (``kernel_limits_error``) raise ``ValueError`` here,
     before any weight moves to the card."""
 
+    step: Optional[int] = None      # the checkpoint's step, when loaded
+
     def __init__(self, cfg: Config, params: Params,
                  device: Union[str, torch.device, None] = None,
                  weight_dtype: Optional[torch.dtype] = None):
@@ -115,6 +119,26 @@ class WaveNetGenerator:
         else:
             raise ValueError("give weights or init_seed")
         return cls(cfg, params, device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str,
+                        device: Union[str, torch.device, None] = None,
+                        use_ema: bool = True, step: Optional[int] = None,
+                        config: Optional[str] = None) -> "WaveNetGenerator":
+        """The trained generator of a run (a run dir, its ``ckpt/`` dir or
+        a ``*.ckpt.tar.gz``), as the JAX ``WaveNetGenerator.load`` serves
+        it: ``ema_params`` (``params`` when ``use_ema`` is off) of ``step``
+        (the latest by default), weight norm folded, every name and shape
+        checked; the config from the run's ``params.json`` unless
+        ``config`` names another."""
+        resolve_device(device)            # no GPU: fail before reading
+        item = "ema_params" if use_ema else "params"
+        with CheckpointReader(path) as reader:
+            cfg = load_config(config) if config else reader.config()
+            tree = reader.restore(step, items=(item, "step"))
+        gen = cls(cfg, params_from_jax(cfg.wavenet, tree[item]), device)
+        gen.step = int(tree["step"])
+        return gen
 
     def _decode_samples(self, samples: np.ndarray) -> np.ndarray:
         w = self.cfg.wavenet

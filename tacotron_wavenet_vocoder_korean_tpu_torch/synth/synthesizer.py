@@ -16,16 +16,19 @@ result, the manual-attention modes 1-3, alignment PNGs, file output and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import Config, load_config
-from ..convert import seeded_tacotron_params, tacotron_params_from_npz
+from ..convert import (seeded_tacotron_params, tacotron_params_from_jax,
+                       tacotron_params_from_npz)
 from ..device import no_tf32, resolve_device
 from ..models.tacotron import Tacotron
 from ..text import TextCodec
+from ..train.checkpoints import CheckpointReader
 
 
 def attention_trim_index(alignment: np.ndarray, seq_len: int,
@@ -59,6 +62,8 @@ class Synthesizer:
     """Holds the config, the text codec and the Tacotron on ``device``
     (``cuda`` unless the caller asks for the CPU)."""
 
+    step: Optional[int] = None      # the checkpoint's step, when loaded
+
     def __init__(self, cfg: Config, params: Dict[str, torch.Tensor],
                  device: Union[str, torch.device, None] = None):
         self.cfg = cfg
@@ -87,6 +92,41 @@ class Synthesizer:
         else:
             raise ValueError("give weights or seed")
         return cls(cfg, params, device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str,
+                        device: Union[str, torch.device, None] = None,
+                        step: Optional[int] = None,
+                        num_speakers: Optional[int] = None,
+                        inference_dropout: Optional[bool] = None
+                        ) -> "Synthesizer":
+        """The trained Tacotron of a run (a run dir, its ``ckpt/`` dir or a
+        ``*.ckpt.tar.gz``), as the JAX ``Synthesizer.load`` serves it
+        (``fused_rnn=True``): ``params`` and ``batch_stats`` of ``step``
+        (the latest by default), GRUCell trees fused (``fused_rnn`` set),
+        the config from the run's ``params.json``.  ``num_speakers``, when
+        given, must match the checkpoint's; ``inference_dropout``, when
+        given, overrides ``dec_prenet_dropout_inference``."""
+        resolve_device(device)            # no GPU: fail before reading
+        with CheckpointReader(path) as reader:
+            cfg = reader.config()
+            taco = cfg.tacotron
+            if num_speakers is not None and num_speakers != taco.num_speakers:
+                raise ValueError(f"checkpoint has {taco.num_speakers} "
+                                 f"speakers, requested {num_speakers}")
+            dropout = (taco.dec_prenet_dropout_inference
+                       if inference_dropout is None else inference_dropout)
+            cfg = dataclasses.replace(cfg, tacotron=dataclasses.replace(
+                taco, dec_prenet_dropout_inference=dropout, fused_rnn=True))
+            tree = reader.restore(step, items=("params", "batch_stats",
+                                               "step"))
+        vocab = TextCodec(cfg.tacotron.cleaners).vocab_size
+        params = tacotron_params_from_jax(cfg.tacotron, tree["params"],
+                                          tree["batch_stats"], cfg.audio,
+                                          vocab)
+        synth = cls(cfg, params, device)
+        synth.step = int(tree["step"])
+        return synth
 
     def _prepare_inputs(self, texts: Sequence[str]
                         ) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,0 +1,1 @@
+"""See the JAX package's module of the same name."""

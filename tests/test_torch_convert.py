@@ -84,7 +84,8 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+              "zstandard")
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
