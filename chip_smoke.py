@@ -12,8 +12,13 @@ against the CPU's, time the decode; then serve the trained checkpoints
 committed mel, with its MCD to the wav the JAX system made (beside the
 seeded weights'), trained ``both_r2`` card against CPU, its served decode
 and its DTW distance to the committed mel, and text -> wav with both
-trained models; finally time the kernel, and the previous step design
-(``csrc/wavenet_gen_block.cu``) beside it.
+trained models; then the system's entry point, ``TTSPipeline`` from both
+trained checkpoints: Griffin-Lim on the card against the CPU (the same
+initial phase) and timed, one ``tts`` call on four texts (one kernel
+launch; Tacotron, Griffin-Lim and vocoder times), the MCD of its
+Griffin-Lim wav to the JAX system's beside the seeded Tacotron's, and the
+``tts`` and ``synthesizer`` CLIs in subprocesses; finally time the kernel,
+and the previous step design (``csrc/wavenet_gen_block.cu``) beside it.
 
     python3 chip_smoke.py
 
@@ -31,8 +36,8 @@ seeded weights over the served 200 steps in bf16 with prenet dropout, as
 trained phases read ``artifacts/wn_moon.ckpt.tar.gz`` (``ema_params``) and
 ``artifacts/both_r2.ckpt.tar.gz`` (``params``, ``batch_stats``).  Wavs and
 unpacked checkpoints go to temporary directories that are removed.  A
-``tacotron`` and a ``trained`` JSON line carry those phases' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+``tacotron``, a ``trained`` and a ``tts`` JSON line carry those phases'
+numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -64,6 +69,7 @@ TEXT0 = "존경하는 국민 여러분, 안녕하십니까."
 E2E_MEL = os.path.join(REPO, "samples", "e2e_both_r2_wn_moon", "0.mel.npy")
 E2E_WAV = os.path.join(REPO, "samples", "e2e_both_r2_wn_moon",
                        "0.wavenet.wav")
+E2E_GL_WAV = os.path.join(REPO, "samples", "e2e_both_r2_wn_moon", "0.wav")
 TACO_MEL0 = os.path.join(REPO, "samples", "both_r2", "0.mel.npy")
 # Trained kernel-vs-twin spans start at these frames of E2E_MEL, primed
 # with the committed wav's samples there.
@@ -132,6 +138,16 @@ TACO_F32_TOL = 1e-4
 TACO_BF16_RATIO = 2.0
 TACO_REPS = 5            # timed repetitions of each decode, after a warm-up
 ALIGN_SUM_TOL = 1e-3     # a column of monotonic attention sums to <= 1
+# Griffin-Lim card vs CPU, the same initial phase: cuFFT and the CPU's FFT
+# round differently, 60 iterations carry it and the inverse pre-emphasis
+# (gain up to 1 / (1 - 0.97)) amplifies it; the port against JAX, both on
+# a CPU, differ by ~6e-6 on the committed mel (tests/test_torch_griffin_lim.py).
+GL_TOL = 1e-4
+GL_REPS = 5
+# The end-to-end request: TEXT0 and three of TEXTS, both speakers.
+TTS_TEXTS = [TEXT0] + TEXTS[1:]
+TTS_SPEAKERS = [0, 1, 0, 1]
+CLI_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -246,32 +262,36 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_count(fn) -> tuple:
+    """(CUDA kernels, kernel launch calls, device time in us) of ``fn``,
+    counted by torch.profiler; no kernels when it sees no device."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    launch_calls = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return (sum(e.count for e in kernels), launch_calls,
+            sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) for e in kernels))
+
+
 def decoder_launches(model, enc, masks, steps: int) -> dict:
     """CUDA kernels launched per decoder step, counted by torch.profiler
     over runs of ``steps`` and 2 x ``steps`` steps (the difference, so the
     loop's set-up is not counted), and the profiler's device time."""
-    from torch.profiler import ProfilerActivity, profile
-    counts, device_us = [], []
-    for n in (steps, 2 * steps):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.decoder(enc, n, [m[:n] for m in masks])
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type.name == "CUDA"]
-        launch_calls = sum(e.count for e in events if e.key in (
-            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-        counts.append((sum(e.count for e in kernels), launch_calls))
-        device_us.append(sum(getattr(e, "self_device_time_total", None)
-                             or getattr(e, "self_cuda_time_total", 0)
-                             for e in kernels))
+    counts = [kernel_count(lambda n=n: model.decoder(
+        enc, n, [m[:n] for m in masks])) for n in (steps, 2 * steps)]
+    launch_calls = (counts[1][1] - counts[0][1]) / steps
     if counts[1][0] == 0:                # the profiler saw no device
         return {"kernels_per_step": None, "device_us_per_step": None,
-                "launch_calls_per_step": (counts[1][1] - counts[0][1])
-                / steps}
+                "launch_calls_per_step": launch_calls}
     return {"kernels_per_step": (counts[1][0] - counts[0][0]) / steps,
-            "launch_calls_per_step": (counts[1][1] - counts[0][1]) / steps,
-            "device_us_per_step": (device_us[1] - device_us[0]) / steps}
+            "launch_calls_per_step": launch_calls,
+            "device_us_per_step": (counts[1][2] - counts[0][2]) / steps}
 
 
 def tacotron_phases(dev, wn_cfg, gen, smi) -> dict:
@@ -739,6 +759,280 @@ def trained_phases(dev, gen_seeded, smi, tmp) -> dict:
     return out
 
 
+def png_size(path: str) -> tuple:
+    """(height, width) from a PNG's IHDR; raises unless the file starts
+    with the PNG signature and an IHDR chunk."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def timed_calls(obj, name: str, sink: list) -> None:
+    """Replace the bound method ``obj.name`` by one that adds its wall time
+    (between device synchronisations) to ``sink``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, wrapper)
+
+
+def griffin_lim_phases(dev, smi, synth, tmp) -> dict:
+    """Griffin-Lim on the card against the CPU, the same initial phase on
+    both (one CPU draw): the committed mel through ``inv_mel_spectrogram``
+    and trained both_r2's linear output of TEXT0 through
+    ``inv_linear_spectrogram``, each padded to the Griffin-Lim bucket as
+    the Synthesizer pads it and cut to frames x hop; then GL's time per
+    utterance and kernels per iteration."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav, save_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.griffin_lim import (
+        griffin_lim, initial_phase, inv_linear_spectrogram,
+        inv_mel_spectrogram)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+        GL_BUCKET, round_up)
+
+    a = synth.cfg.audio
+    hop, sr, cpu = a.hop_size, a.sample_rate, torch.device("cpu")
+    out = {}
+    with phase("Griffin-Lim: card vs CPU, the same initial phase, 60 "
+               "iterations"):
+        served = synth.synthesize([TEXT0], speaker_ids=[0], rng_seed=0)[0]
+        n0 = served["mel"].shape[0]
+        wav_path = os.path.join(tmp, "gl_served.wav")
+        save_wav(served["wav"], wav_path, sr)
+        written = load_wav(wav_path, sr)
+        if served["wav"].shape != (n0 * hop,) or not (
+                np.isfinite(served["wav"]).all()
+                and np.abs(written).max() <= 1):
+            raise AssertionError("the served GL wav (the card's own phase "
+                                 "draw) is not finite or not written in "
+                                 "[-1, 1]")
+        log(f"  served TEXT0 (card's own draw): {n0} frames -> "
+            f"{served['wav'].shape[0]} samples, peak "
+            f"{np.abs(served['wav']).max():.4f}, written in [-1, 1]")
+        specs = {"inv_mel_spectrogram(committed 0.mel.npy)":
+                 (inv_mel_spectrogram, np.load(E2E_MEL).astype(np.float32)),
+                 "inv_linear_spectrogram(trained linear of TEXT0)":
+                 (inv_linear_spectrogram, served["linear"])}
+        checks = {}
+        for name, (fn, spec) in specs.items():
+            n = spec.shape[0]
+            padded = torch.from_numpy(np.pad(
+                spec, ((0, round_up(n, GL_BUCKET) - n), (0, 0)),
+                constant_values=-a.max_abs_value).T.copy())
+            draw = initial_phase((a.num_freq, padded.shape[1]), 0, cpu)
+            card = fn(padded.to(dev), a, phase=draw.to(dev))[:n * hop]
+            card = card.cpu().numpy()
+            ref = fn(padded, a, phase=draw)[:n * hop].numpy()
+            err = float(np.abs(card - ref).max())
+            peak = float(np.abs(ref).max())
+            save_wav(card, wav_path, sr)
+            in_range = float(np.abs(load_wav(wav_path, sr)).max())
+            log(f"  {name}: {n} frames -> {card.shape[0]} samples; max abs "
+                f"err card vs CPU {err:.3e} (bound {GL_TOL:g}), wav peak "
+                f"{peak:.4f} (Griffin-Lim's output is not normalised; "
+                f"written peak {in_range:.4f})")
+            if card.shape != (n * hop,) or not np.isfinite(card).all():
+                raise AssertionError(f"{name}: {card.shape} not {n * hop} "
+                                     "finite samples")
+            if err > GL_TOL or in_range > 1:
+                raise AssertionError(f"{name}: the card's Griffin-Lim "
+                                     "differs from the CPU's")
+            checks[name] = {"frames": n, "max_abs_err": err, "peak": peak}
+        out["card_vs_cpu"] = checks
+
+    with phase("Griffin-Lim timing (CUDA events, after a warm-up)"), \
+            torch.no_grad():
+        n = n0
+        lin = torch.nn.functional.pad(
+            torch.from_numpy(served["linear"].T.copy()).to(dev),
+            (0, round_up(n, GL_BUCKET) - n), value=-a.max_abs_value)
+        render = lambda: inv_linear_spectrogram(lin, a)
+        render()
+        reps = [cuda_ms(render) for _ in range(GL_REPS)]
+        ms = float(np.mean(reps))
+        mag = torch.rand(lin.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+        counts = [kernel_count(lambda k=k: griffin_lim(mag, a, n_iters=k))
+                  for k in (10, 20)]
+        per_iter = (counts[1][0] - counts[0][0]) / 10
+        dev_us = (counts[1][2] - counts[0][2]) / 10
+        iter_ms = (cuda_ms(lambda: griffin_lim(mag, a, n_iters=20))
+                   - cuda_ms(lambda: griffin_lim(mag, a, n_iters=10))) / 10
+        audio_s = n * hop / sr
+        log(f"  inv_linear_spectrogram of {lin.shape[1]} frames (TEXT0's "
+            f"{n}, {audio_s:.3f} s of audio), 60 iterations: {ms:.2f} ms "
+            f"per utterance (reps {min(reps):.2f}-{max(reps):.2f}) = "
+            f"{audio_s / ms * 1e3:.1f}x realtime; one iteration "
+            f"{iter_ms:.3f} ms, {per_iter or 'not measured'} CUDA kernels, "
+            f"device {dev_us or 'not measured'} us [{smi}]")
+        out["timing"] = {
+            "frames": n, "bucket_frames": int(lin.shape[1]),
+            "ms_per_utterance": ms, "ms_range": [min(reps), max(reps)],
+            "x_realtime": audio_s / ms * 1e3, "ms_per_iteration": iter_ms,
+            "kernels_per_iteration": per_iter or None,
+            "device_us_per_iteration": dev_us or None}
+    return out
+
+
+def tts_phases(dev, smi, tmp) -> dict:
+    """The port's entry point with both trained checkpoints: one
+    ``TTSPipeline.tts`` call on 4 texts (Tacotron, Griffin-Lim and vocoder
+    times split), the MCD of text 0's Griffin-Lim wav to the JAX system's
+    against the seeded Tacotron's, then the ``tts`` and ``synthesizer``
+    CLIs in subprocesses.  Returns the numbers for the ``tts`` line, with
+    the kernel launches of the ``tts`` call under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.config import BOTH_R2 as B2
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        seeded_tacotron_params)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.e2e import (
+        TTSPipeline)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+        Synthesizer)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.text import TextCodec
+    from tacotron_wavenet_vocoder_korean_tpu_torch.utils.metrics import mcd
+    from tacotron_wavenet_vocoder_korean_tpu_torch.utils.plot import (
+        image_size)
+
+    out = {}
+    with phase("TTSPipeline.from_checkpoint (both trained checkpoints)"):
+        t0 = time.perf_counter()
+        pipe = TTSPipeline.from_checkpoint(BOTH_R2, WN_MOON, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        log(f"  loaded in {out['load_s']:.2f}s (Tacotron step "
+            f"{pipe.synth.step}, WaveNet step {pipe.vocoder.step})")
+    out["griffin_lim"] = griffin_lim_phases(dev, smi, pipe.synth, tmp)
+    a = pipe.synth.cfg.audio
+    hop, sr = a.hop_size, a.sample_rate
+    codec = TextCodec(pipe.synth.cfg.tacotron.cleaners)
+    iters = pipe.synth.cfg.tacotron.max_iters
+
+    with phase("TTSPipeline.tts: 4 texts, text -> mel -> GL wav and WaveNet "
+               "wav, one call"):
+        base = os.path.join(tmp, "tts")
+        gl_s, voc_s = [], []
+        timed_calls(pipe.synth, "griffin_lim_wav", gl_s)
+        timed_calls(pipe.vocoder, "generate", voc_s)
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.tts(TTS_TEXTS, base_path=base, speaker_ids=TTS_SPEAKERS)
+        wall = time.perf_counter() - t0
+        launches = dict(wavenet_generate.variant_launches)
+        log(f"  launches: {launches}")
+        if launches != {"mol-bfloat16": 1}:
+            raise AssertionError("TTSPipeline.tts did not launch the bf16 "
+                                 "MoL kernel once for 4 texts")
+        for i, r in enumerate(res):
+            n = r["mel"].shape[0] * hop
+            if r["wav"].shape != (n,) or r["wavenet_wav"].shape != (n,):
+                raise AssertionError(f"text {i}: wavs {r['wav'].shape}, "
+                                     f"{r['wavenet_wav'].shape}, want {n}")
+            if not (np.isfinite(r["wav"]).all()
+                    and np.isfinite(r["wavenet_wav"]).all()
+                    and np.abs(r["wavenet_wav"]).max() <= 1):
+                raise AssertionError(f"text {i}: wavs not finite, or the "
+                                     "WaveNet wav outside [-1, 1]")
+            names = [f"{i}.wav", f"{i}.wavenet.wav", f"{i}.mel.npy",
+                     f"{i}.png"]
+            missing = [f for f in names
+                       if not os.path.isfile(os.path.join(base, f))]
+            if missing:
+                raise AssertionError(f"text {i}: not written: {missing}")
+        audio_s = sum(len(r["wav"]) for r in res) / sr
+        gl, voc = sum(gl_s), sum(voc_s)
+        taco = wall - gl - voc
+        log(f"  4 texts -> {audio_s:.3f} s of audio in {wall:.3f} s = "
+            f"{audio_s / wall:.3f}x realtime aggregate: Tacotron and host "
+            f"{taco:.3f} s, Griffin-Lim {gl:.3f} s ({len(gl_s)} renders), "
+            f"vocoder {voc:.3f} s; frames "
+            f"{[r['mel'].shape[0] for r in res]} [{smi}]")
+        out["request"] = {"texts": len(res), "audio_s": audio_s,
+                          "wall_s": wall, "x_realtime": audio_s / wall,
+                          "tacotron_and_host_s": taco, "griffin_lim_s": gl,
+                          "vocoder_s": voc,
+                          "griffin_lim_share": gl / wall,
+                          "frames": [int(r["mel"].shape[0]) for r in res]}
+
+    with phase("MCD of text 0's GL wav to the JAX system's GL wav"):
+        ref_gl = load_wav(E2E_GL_WAV, sr)
+        ref_wn = load_wav(E2E_WAV, sr)
+        seeded = Synthesizer(
+            dataclasses.replace(pipe.synth.cfg, tacotron=B2),
+            seeded_tacotron_params(B2, seed=0, audio=a), device=dev)
+        seeded_wav = seeded.synthesize([TEXT0], speaker_ids=[0])[0]["wav"]
+        mcd_t = mcd(res[0]["wav"], ref_gl, a)
+        mcd_s = mcd(seeded_wav, ref_gl, a)
+        mcd_wn = mcd(res[0]["wavenet_wav"], ref_wn, a)
+        log(f"  GL wav MCD to samples/e2e_both_r2_wn_moon/0.wav: trained "
+            f"{mcd_t:.3f} dB, seeded Tacotron {mcd_s:.3f} dB (gate: trained "
+            f"< seeded); WaveNet wav MCD to 0.wavenet.wav {mcd_wn:.3f} dB")
+        if not mcd_t < mcd_s:
+            raise AssertionError("the trained GL wav is no closer to the JAX "
+                                 "system's than the seeded Tacotron's")
+        out["mcd"] = {"gl_trained_db": mcd_t, "gl_seeded_db": mcd_s,
+                      "wavenet_trained_db": mcd_wn}
+    del pipe, seeded
+
+    with phase("the tts and synthesizer CLIs, in subprocesses on the card"):
+        dirs = {"tts": os.path.join(tmp, "cli_tts"),
+                "synthesizer": os.path.join(tmp, "cli_synth")}
+        cmds = {
+            "tts": ["--tacotron", BOTH_R2, "--wavenet", WN_MOON, "--text",
+                    TEXT0, "--speaker_id", "0", "--out_dir", dirs["tts"]],
+            "synthesizer": ["--load_path", BOTH_R2, "--text", TEXT0,
+                            "--speaker_id", "0", "--manual_attention_mode",
+                            "1", "--max_iters", "60", "--base_path",
+                            dirs["synthesizer"]]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.{k}", *v], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for k, v in cmds.items()}
+        cli = {}
+        for k, proc in procs.items():
+            text, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+            cli[k] = {"rc": proc.returncode,
+                      "wall_s": time.perf_counter() - t0}
+            log(f"  {k} (rc {proc.returncode}, {cli[k]['wall_s']:.1f}s): "
+                + " | ".join(text.strip().splitlines()[-3:]))
+            if proc.returncode != 0:
+                raise AssertionError(f"the {k} CLI failed:\n{text}")
+        n_ids = len(codec.encode(TEXT0))
+        for k, stem, steps in (("tts", "0", iters),
+                               ("synthesizer", "0_manual", 60)):
+            want = {f"{stem}.wav", f"{stem}.mel.npy", f"{stem}.png"}
+            if k == "tts":
+                want.add("0.wavenet.wav")
+            got = set(os.listdir(dirs[k]))
+            size = png_size(os.path.join(dirs[k], f"{stem}.png"))
+            log(f"  {k}: wrote {sorted(got)}; PNG {size[1]} x {size[0]} "
+                f"(alignment {n_ids} x {steps})")
+            if got != want or size != image_size(n_ids, steps):
+                raise AssertionError(f"the {k} CLI wrote {sorted(got)}, PNG "
+                                     f"{size}; want {sorted(want)}, "
+                                     f"{image_size(n_ids, steps)}")
+            cli[k]["files"] = sorted(got)
+        out["cli"] = cli
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1056,6 +1350,12 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     trained_launches = trained.pop("launches")
     trained_errors = trained.pop("max_abs_err")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        tts = tts_phases(dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tts_launches = tts.pop("launches")
 
     timing = {}
     with phase("kernel timing at the main path's shapes"), torch.no_grad():
@@ -1140,6 +1440,7 @@ def main() -> int:
             "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
             "library_ms": None,
             "launches_text_to_wav": text_launches.get(v, 0),
+            "launches_tts": tts_launches.get(v, 0),
             "side_by_side_steps": SIDE_T,
             "us_per_step": side[v]["kernel"],
             "parent_us_per_step": side[v]["parent"],
@@ -1154,6 +1455,7 @@ def main() -> int:
     log(f"total wall time {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"tacotron": taco}))
     print(json.dumps({"trained": trained}))
+    print(json.dumps({"tts": dict(tts, card=smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

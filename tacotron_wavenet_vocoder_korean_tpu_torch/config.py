@@ -22,9 +22,9 @@ from typing import Any, Dict, Tuple
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """The audio parameters serving and the mel analysis read (sample
-    rate, hop, window, mel and linear widths, pre-emphasis, the dB and
-    normalisation chain)."""
+    """The audio parameters serving, the mel analysis and Griffin-Lim read
+    (sample rate, hop, window, mel and linear widths, pre-emphasis, the dB
+    and normalisation chain, Griffin-Lim's iterations and power)."""
 
     sample_rate: int = 24000
     hop_size: int = 300
@@ -40,6 +40,9 @@ class AudioConfig:
     allow_clipping_in_normalization: bool = True
     symmetric_mels: bool = True
     max_abs_value: float = 4.0
+
+    griffin_lim_iters: int = 60
+    power: float = 1.5
 
     @property
     def num_freq(self) -> int:

@@ -1,16 +1,15 @@
-"""The analysis half of the JAX package's ``dsp/stft.py``: waveform ->
-normalized mel spectrogram, in plain PyTorch (numpy for the constant
-window and filterbank).
+"""The JAX package's ``dsp/stft.py`` in plain PyTorch (numpy for the
+constant window, filterbank and its pseudo-inverse): waveform ->
+normalized mel or linear spectrogram, and back (``istft``,
+``inv_preemphasis``, ``mel_to_linear``) for Griffin-Lim.
 
 librosa's conventions, as the reference uses them: a periodic Hann window
 of ``win_size`` centred in ``fft_size``, ``center=True`` reflect padding,
 the Slaney mel filterbank (fmin 0, fmax sr/2), amplitude to dB with a
 ``min_level_db`` floor, the ``ref_level_db`` shift and the symmetric
 [-max_abs_value, max_abs_value] normalisation.  Computed in the input's
-floating type (float32 as the JAX functions compute).
-
-The synthesis half (``istft``, ``inv_preemphasis``, ``mel_to_linear``)
-and Griffin-Lim are not ported yet.
+floating type (float32 as the JAX functions compute).  The preprocessing
+entry point ``extract_features`` is not ported.
 """
 from __future__ import annotations
 
@@ -87,6 +86,23 @@ def preemphasis(wav: torch.Tensor, k: float, enabled: bool = True
     return torch.cat([wav[:1], wav[1:] - k * wav[:-1]])
 
 
+def inv_preemphasis(wav: torch.Tensor, k: float, enabled: bool = True
+                    ) -> torch.Tensor:
+    """The IIR filter y[t] = x[t] + k y[t-1] over the last dim, as a
+    log-depth scan (the JAX function's ``associative_scan``): after the
+    step of shift s each sample holds the sum over its last 2s inputs,
+    y[t] += k^s y[t-s], so ceil(log2 T) elementwise steps stay on the
+    device."""
+    if not enabled:
+        return wav
+    y = wav.clone()
+    s = 1
+    while s < y.shape[-1]:
+        y[..., s:] += (k ** s) * y[..., :-s]
+        s *= 2
+    return y
+
+
 def _frame(y: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
     """[T] -> [num_frames, frame_length]."""
     return y.unfold(-1, frame_length, hop)
@@ -104,9 +120,46 @@ def stft(y: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     return torch.fft.rfft(frames * win, dim=-1).T
 
 
+@functools.lru_cache(maxsize=16)
+def _window_sum(win_size: int, fft_size: int, hop: int, num_frames: int,
+                device: torch.device) -> torch.Tensor:
+    """The overlap-added squared window of ``num_frames`` frames, clamped
+    to 1e-8: ``istft``'s divisor, which depends on the frame count only."""
+    win2 = hann_window(win_size, fft_size).astype(np.float64) ** 2
+    total = fft_size + hop * (num_frames - 1)
+    out = np.zeros(total)
+    for i in range(num_frames):
+        out[i * hop:i * hop + fft_size] += win2
+    return torch.from_numpy(np.maximum(out, 1e-8).astype(np.float32)).to(
+        device)
+
+
+def istft(spec: torch.Tensor, cfg: AudioConfig,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse of ``stft`` (librosa's ``istft``, ``center=True``): irfft of
+    each frame, the window, overlap-add divided by the overlap-added
+    squared window, and the ``fft_size // 2`` padding cut from both ends.
+    ``fft_size`` need not be a multiple of ``hop_size``: the overlap-add is
+    ``fold`` (col2im), whose sums are taken in the same order each run."""
+    fft, hop = cfg.fft_size, cfg.hop_size
+    win = torch.from_numpy(hann_window(cfg.win_size, fft)).to(spec.device)
+    frames = torch.fft.irfft(spec.T, n=fft, dim=-1) * win       # [F, fft]
+    num_frames = frames.shape[0]
+    total = fft + hop * (num_frames - 1)
+    y = torch.nn.functional.fold(frames.T[None], (1, total), (1, fft),
+                                 stride=(1, hop)).reshape(total)
+    y = y / _window_sum(cfg.win_size, fft, hop, num_frames, spec.device)
+    y = y[fft // 2:total - fft // 2]
+    return y if length is None else y[:length]
+
+
 def amp_to_db(x: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     min_level = float(np.exp(cfg.min_level_db / 20 * np.log(10)))
     return 20.0 * torch.log10(torch.clamp(x, min=min_level))
+
+
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
 
 
 def normalize(S: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
@@ -148,3 +201,26 @@ def mel_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
                                        cfg.num_mels)).to(wav.device, wav.dtype)
     S = amp_to_db(basis @ D.abs(), cfg) - cfg.ref_level_db
     return normalize(S, cfg)
+
+
+def linear_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """wav [T] -> normalized linear spectrogram [num_freq, frames]."""
+    D = stft(preemphasis(wav, cfg.preemphasis, cfg.preemphasize), cfg)
+    return normalize(amp_to_db(D.abs(), cfg) - cfg.ref_level_db, cfg)
+
+
+@functools.lru_cache(maxsize=8)
+def inv_mel_basis(sample_rate: int, fft_size: int, num_mels: int
+                  ) -> np.ndarray:
+    return np.linalg.pinv(
+        mel_basis(sample_rate, fft_size, num_mels)).astype(np.float32)
+
+
+def mel_to_linear(mel: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
+    """Mel amplitudes [num_mels, frames] -> approximate linear amplitudes
+    [num_freq, frames] through the filterbank's pseudo-inverse, floored at
+    1e-10."""
+    inv = torch.from_numpy(inv_mel_basis(cfg.sample_rate, cfg.fft_size,
+                                         cfg.num_mels)).to(mel.device,
+                                                           mel.dtype)
+    return torch.clamp(inv @ mel, min=1e-10)

@@ -1,22 +1,27 @@
-"""Text -> mel synthesis with Tacotron: the mel half of the JAX package's
-``synth/synthesizer.py``.
+"""Text -> mel -> Griffin-Lim wav with Tacotron (counterpart of the JAX
+package's ``synth/synthesizer.py``).
 
 Texts are encoded by the Korean frontend, padded to a multiple of 16
 (lengths include EOS), decoded in one batch over a static ``max_iters``,
 and each utterance is trimmed where its attention has reached the end of
 the text (``attention_trim_index``, the reference's argmax heuristic).
-The mels are what ``WaveNetGenerator`` vocodes.  Prenet dropout at
-inference follows the config, seeded by ``synthesize(rng_seed=)``; the
-compute type (``compute_dtype``) does too, on either device, and float32
-stays float32 on the card (no TF32).
-
-Not ported yet (ROADMAP.md, Queue 1): the Griffin-Lim ``wav`` of each
-result, the manual-attention modes 1-3, alignment PNGs, file output and
-``synthesize_long``.
+The mels are what ``WaveNetGenerator`` vocodes.  Manual-attention modes
+1-3 decode a second time with the first decode's alignments made hard,
+sharpened or pruned.  Each result's Griffin-Lim wav is rendered on the
+device from its trimmed linear spectrogram, padded with silence to a
+multiple of 100 frames as the JAX synthesizer pads it (the padding reaches
+the wav's edges through Griffin-Lim, so it is part of the result).  With a
+``base_path`` the wav, the mel (``.mel.npy``) and the alignment (``.png``,
+``utils/plot.py``) are written there.  Prenet dropout at inference follows
+the config, seeded by ``synthesize(rng_seed=)``, the same masks for both
+decodes of a manual mode; the compute type (``compute_dtype``) does too,
+on either device, and float32 stays float32 on the card (no TF32).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -26,9 +31,16 @@ from ..config import Config, load_config
 from ..convert import (seeded_tacotron_params, tacotron_params_from_jax,
                        tacotron_params_from_npz)
 from ..device import no_tf32, resolve_device
+from ..dsp.audio_io import save_wav
+from ..dsp.griffin_lim import inv_linear_spectrogram
 from ..models.tacotron import Tacotron
 from ..text import TextCodec
 from ..train.checkpoints import CheckpointReader
+from ..utils import plot
+
+# Griffin-Lim renders each linear spectrogram padded to a multiple of this
+# many frames (1.25 s), as the JAX synthesizer does.
+GL_BUCKET = 100
 
 
 def attention_trim_index(alignment: np.ndarray, seq_len: int,
@@ -150,41 +162,139 @@ class Synthesizer:
             np.asarray(0 if speaker_ids is None else speaker_ids), (batch,))
         return np.arange(n)[ids]
 
+    def manual_alignments(self, align: np.ndarray, mode: int
+                          ) -> np.ndarray:
+        """The first decode's alignments [B, T_in, T_dec] -> the second
+        decode's [B, T_dec, T_in]: 1 the argmax one-hot, 2 squared
+        (sharpened), 3 the argmax set to 1 (pruned)."""
+        manual = np.transpose(align, (0, 2, 1)).copy()
+        steps = np.arange(manual.shape[1])
+        for b in range(len(manual)):
+            argmax = align[b].argmax(0)
+            if mode == 1:
+                manual[b] = 0.0
+                manual[b][steps, argmax] = 1.0
+            elif mode == 2:
+                manual[b] = manual[b] ** 2
+            elif mode == 3:
+                manual[b][steps, argmax] = 1.0
+            else:
+                raise ValueError(f"manual_attention_mode {mode}: 0 to 3")
+        return manual
+
+    def griffin_lim_wav(self, linear: torch.Tensor) -> np.ndarray:
+        """Trimmed linear frames [n, num_freq] (on the device) -> the
+        Griffin-Lim wav of n * hop_size samples, rendered from the frames
+        padded with silence to a multiple of ``GL_BUCKET`` (a multiple
+        itself gets no padding and loses its last hop, as in JAX)."""
+        a = self.cfg.audio
+        n = linear.shape[0]
+        bucket = round_up(max(n, 1), GL_BUCKET)
+        pad = -a.max_abs_value if a.symmetric_mels else 0.0
+        padded = torch.nn.functional.pad(linear.float().T, (0, bucket - n),
+                                         value=pad)
+        wav = inv_linear_spectrogram(padded, a)
+        return wav[:n * a.hop_size].cpu().numpy()
+
+    def synthesize_long(self, text: str, base_path: Optional[str] = None,
+                        speaker_id: int = 0, silence_ms: float = 150.0,
+                        **kwargs) -> dict:
+        """Split ``text`` at sentence ends, synthesize the pieces as one
+        batch and join their wavs with ``silence_ms`` of zeros (and their
+        mels); with ``base_path``, write ``long.wav`` and ``long.mel.npy``
+        there."""
+        pieces = [p.strip() for p in re.split(r"(?<=[.!?])\s+", text.strip())
+                  if p.strip()] or [text]
+        results = self.synthesize(pieces, speaker_ids=[speaker_id]
+                                  * len(pieces), **kwargs)
+        sr = self.cfg.audio.sample_rate
+        gap = np.zeros(int(sr * silence_ms / 1000.0), np.float32)
+        parts = []
+        for r in results:
+            parts.extend([r["wav"].astype(np.float32), gap])
+        wav = np.concatenate(parts[:-1])
+        mel = np.concatenate([r["mel"] for r in results], axis=0)
+        out = {"wav": wav, "mel": mel, "text": text, "pieces": len(pieces)}
+        if base_path:
+            os.makedirs(base_path, exist_ok=True)
+            out["wav_path"] = os.path.join(base_path, "long.wav")
+            save_wav(wav, out["wav_path"], sr)
+            out["mel_path"] = os.path.join(base_path, "long.mel.npy")
+            np.save(out["mel_path"], mel, allow_pickle=False)
+        return out
+
     @torch.no_grad()
     def synthesize(self, texts: Union[str, Sequence[str]],
+                   base_path: Optional[str] = None,
                    speaker_ids: Optional[Sequence[int]] = None,
                    attention_trim: bool = True,
+                   manual_attention_mode: int = 0,
                    max_iters: Optional[int] = None,
+                   save_alignment: bool = True,
+                   save_mel: bool = True,
                    rng_seed: int = 0) -> List[dict]:
         """Decode ``texts`` in one batch; one dict per text with ``mel``
         [frames, num_mels] and ``linear`` [frames, num_freq] (both trimmed
-        when ``attention_trim``), ``alignment`` [T_in, T_dec] and
-        ``text``."""
+        when ``attention_trim``), ``wav`` (Griffin-Lim, frames * hop_size
+        samples), ``alignment`` [T_in, T_dec] and ``text``; with
+        ``base_path`` also ``wav_path`` and, as ``save_mel`` and
+        ``save_alignment`` ask, ``mel_path`` and ``alignment_path``
+        (``{i}.wav``, ``{i}.mel.npy``, ``{i}.png``; ``{i}_manual.*`` in a
+        manual-attention mode)."""
         if isinstance(texts, str):
             texts = [texts]
         cfg = self.cfg.tacotron
+        r = cfg.reduction_factor
+        max_iters = max_iters or cfg.max_iters
         inputs, lengths = self._prepare_inputs(texts)
         rows = self.speaker_rows(speaker_ids, len(texts))
         dev = self.device
-        generator = None
+        masks = None
         if cfg.dec_prenet_dropout_inference:
-            generator = torch.Generator(device=dev).manual_seed(rng_seed)
-        with no_tf32():
-            out = self.model(
-                torch.from_numpy(inputs).long().to(dev),
+            masks = self.model.draw_prenet_masks(
+                max_iters, len(texts),
+                torch.Generator(device=dev).manual_seed(rng_seed))
+        args = (torch.from_numpy(inputs).long().to(dev),
                 torch.from_numpy(lengths).long().to(dev),
-                None if rows is None else torch.from_numpy(rows).to(dev),
-                max_iters=max_iters or cfg.max_iters, generator=generator)
+                None if rows is None else torch.from_numpy(rows).to(dev))
+        with no_tf32():
+            out = self.model(*args, max_iters=max_iters, prenet_masks=masks)
+            if manual_attention_mode > 0:
+                manual = self.manual_alignments(
+                    out["alignments"].cpu().numpy(), manual_attention_mode)
+                out = self.model(*args, max_iters=max_iters,
+                                 prenet_masks=masks,
+                                 manual_alignments=torch.from_numpy(
+                                     manual).to(dev))
         mel = out["mel_outputs"].cpu().numpy()
-        linear = out["linear_outputs"].cpu().numpy()
+        linear = out["linear_outputs"]
         align = out["alignments"].cpu().numpy()
+        suffix = "_manual" if manual_attention_mode > 0 else ""
         results = []
         for i, text in enumerate(texts):
             n_keep = mel.shape[1]
             if attention_trim:
                 n_keep = min(n_keep, attention_trim_index(
-                    align[i], int(lengths[i]), cfg.reduction_factor))
-            results.append({"mel": mel[i, :n_keep],
-                            "linear": linear[i, :n_keep],
-                            "alignment": align[i], "text": text})
+                    align[i], int(lengths[i]), r))
+            lin = linear[i, :n_keep]
+            entry = {"wav": self.griffin_lim_wav(lin), "mel": mel[i, :n_keep],
+                     "linear": lin.cpu().numpy(), "alignment": align[i],
+                     "text": text}
+            if base_path:
+                self._save(entry, base_path, f"{i}{suffix}",
+                           int(lengths[i]), save_mel, save_alignment)
+            results.append(entry)
         return results
+
+    def _save(self, entry: dict, base_path: str, stem: str, length: int,
+              save_mel: bool, save_alignment: bool) -> None:
+        os.makedirs(base_path, exist_ok=True)
+        entry["wav_path"] = os.path.join(base_path, f"{stem}.wav")
+        save_wav(entry["wav"], entry["wav_path"], self.cfg.audio.sample_rate)
+        if save_mel:
+            entry["mel_path"] = os.path.join(base_path, f"{stem}.mel.npy")
+            np.save(entry["mel_path"], entry["mel"], allow_pickle=False)
+        if save_alignment:
+            entry["alignment_path"] = os.path.join(base_path, f"{stem}.png")
+            plot.plot_alignment(entry["alignment"][:length],
+                                entry["alignment_path"])

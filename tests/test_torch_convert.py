@@ -85,7 +85,7 @@ def _port_sources():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-              "zstandard")
+              "zstandard", "matplotlib", "PIL")
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
