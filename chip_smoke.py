@@ -34,10 +34,20 @@ texts (two per speaker, with digits and Latin letters), decoded with
 seeded weights over the served 200 steps in bf16 with prenet dropout, as
 ``both_r2``'s ``params.json`` asks (the port's ``config.BOTH_R2``).  The
 trained phases read ``artifacts/wn_moon.ckpt.tar.gz`` (``ema_params``) and
-``artifacts/both_r2.ckpt.tar.gz`` (``params``, ``batch_stats``).  Wavs and
-unpacked checkpoints go to temporary directories that are removed.  A
-``tacotron``, a ``trained`` and a ``tts`` JSON line carry those phases'
-numbers; the last line is ``{"ok": true, "device": {...}}``.
+``artifacts/both_r2.ckpt.tar.gz`` (``params``, ``batch_stats``).
+
+Last, WaveNet training at the ``wn_moon`` width on crops of the committed
+``samples/wn_moon_260k`` wavs (B = 8, 15,000 samples, as its
+``params.json`` trains): 20 seeded Adam steps in f32 and in bf16, one
+step on the card against the CPU (f32 and bf16), resuming ``wn_moon`` from
+its tarball at step 260,250 with its optimizer state, three saves with the
+port's ``CheckpointManager`` (two kept), the saved EMA served through one
+kernel launch, and the step's time, peak memory and kernels.
+
+Wavs, run dirs and unpacked checkpoints go to temporary directories that
+are removed.  A ``tacotron``, a ``trained``, a ``tts`` and a ``train`` JSON
+line carry those phases' numbers; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -148,6 +158,31 @@ GL_REPS = 5
 TTS_TEXTS = [TEXT0] + TEXTS[1:]
 TTS_SPEAKERS = [0, 1, 0, 1]
 CLI_TIMEOUT_S = 300
+# WaveNet training at the wn_moon width: crops of the committed wavs that
+# the trained wn_moon made, hop-aligned, with the port's mel analysis.
+TRAIN_WAVS = os.path.join(REPO, "samples", "wn_moon_260k")
+TRAIN_B, TRAIN_T = 8, 15000       # params.json's batch_size and sample_size
+TRAIN_STEPS = 20                  # seeded Adam steps on one fixed batch
+# Card against CPU, one step of the same state: B = 1 and 21 frames (1,153
+# outputs past the receptive field), f32 with TF32 off, on trained wn_moon
+# (params and optimizer state).  The loss agrees to summation order; the
+# graph's gradient under one cotangent to 1e-4 of each leaf's largest; the
+# step's update to 1e-2 of each leaf's largest (Adam divides by sqrt(nu),
+# which magnifies rounding where nu is tiny).  The MoL loss's own gradient
+# is ill-conditioned in f32 (tests/test_torch_wavenet_train.py): the card's
+# whole gradient is held to TRAIN_F64_RATIO times the CPU's own f32 - f64
+# distance.  Seeded weights (fresh Adam state) are compared too, with only
+# the loss bounded: there a rounding difference can cross a ReLU's kink in
+# the skip sum (its gradient jumps) and Adam's first step, g / (|g| + eps),
+# turns the sign of a gradient element that is rounding noise into a full
+# update.
+TRAIN_CMP_T = 6300
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-2
+TRAIN_F64_RATIO = 3.0
+TRAIN_BF16_RATIO = 2.0            # card bf16 vs CPU bf16, against bf16 - f32
+TRAIN_RESUME_STEPS = 5
+TRAIN_REPS = 10                   # timed steps, after a warm-up
+TRAIN_SERVE_FRAMES = 40
 
 
 def log(msg: str) -> None:
@@ -885,6 +920,316 @@ def griffin_lim_phases(dev, smi, synth, tmp) -> dict:
     return out
 
 
+def crop_batch(clips, B: int, T: int, hop: int, rng) -> dict:
+    """B hop-aligned crops of T samples (and their T // hop mel frames)
+    from ``clips`` [(wav, mel [frames, num_mels])], clip and start drawn
+    from ``rng``."""
+    frames = T // hop
+    long_enough = [c for c in clips if min(len(c[1]), len(c[0]) // hop)
+                   >= frames]
+    audio, mels = [], []
+    for _ in range(B):
+        wav, mel = long_enough[rng.randint(len(long_enough))]
+        n = min(len(mel), len(wav) // hop)
+        s = rng.randint(n - frames + 1)
+        audio.append(wav[s * hop:s * hop + T])
+        mels.append(mel[s:s + frames])
+    return {"input_wav": np.stack(audio)[:, :, None].astype(np.float32),
+            "local_condition": np.stack(mels).astype(np.float32)}
+
+
+def leaf_error(a: dict, b: dict) -> float:
+    """max over leaves of max |a - b| / max |b| (a zero leaf of b must be
+    zero in a)."""
+    err = 0.0
+    for k, w in b.items():
+        d = float((a[k].detach().double().cpu() - w.detach().double().cpu()
+                   ).abs().max())
+        scale = float(w.detach().double().abs().max())
+        err = max(err, d / scale if scale else (0.0 if d == 0 else
+                                                float("inf")))
+    return err
+
+
+def compare_step(card_task, cpu_task, card_state, cpu_state, b_card,
+                 b_cpu) -> dict:
+    """One f32 training step of the same state and batch on the card and on
+    the CPU: the loss's relative error; the graph's gradient under one
+    random cotangent into raw_output (largest leaf error against the leaf's
+    largest); the loss's gradient, card against CPU and each against the
+    CPU's float64 gradient; the step's update (new - old params)."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.device import no_tf32
+    graph = {}
+    for name, task, st, b in (("card", card_task, card_state, b_card),
+                              ("cpu", cpu_task, cpu_state, b_cpu)):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in st.params.items()}
+        with no_tf32():
+            o = task.model(leaves, b["input_wav"], b["local_condition"])
+            cot = torch.from_numpy(np.random.RandomState(5).standard_normal(
+                tuple(o["raw_output"].shape)).astype(np.float32))
+            g = torch.autograd.grad(o["raw_output"], list(leaves.values()),
+                                    grad_outputs=cot.to(task.device),
+                                    allow_unused=True)
+        graph[name] = {k: torch.zeros_like(v) if x is None else x
+                       for (k, v), x in zip(leaves.items(), g)}
+    l_card, g_card = card_task.grads(card_state.params, b_card)
+    l_cpu, g_cpu = cpu_task.grads(cpu_state.params, b_cpu)
+    _, g64 = cpu_task.grads({k: v.double() for k, v in
+                             cpu_state.params.items()},
+                            {k: v.double() for k, v in b_cpu.items()})
+    new_card, _ = card_task.train_step(card_state, b_card)
+    new_cpu, _ = cpu_task.train_step(cpu_state, b_cpu)
+    keys = cpu_state.params
+    return {
+        "loss_rel": abs(float(l_card["loss"]) - float(l_cpu["loss"]))
+        / abs(float(l_cpu["loss"])),
+        "graph_grad_err": leaf_error(graph["card"], graph["cpu"]),
+        "loss_grad_err": leaf_error(g_card, g_cpu),
+        "loss_grad_from_f64_card": leaf_error(g_card, g64),
+        "loss_grad_from_f64_cpu": leaf_error(g_cpu, g64),
+        "update_err": leaf_error(
+            {k: new_card.params[k] - card_state.params[k] for k in keys},
+            {k: new_cpu.params[k] - cpu_state.params[k] for k in keys})}
+
+
+def training_phases(dev, smi, tmp) -> dict:
+    """WaveNet training at the wn_moon width (raw input, MoL of 10, 50
+    layers, R = D = 32, S = 512): seeded Adam steps in f32 and bf16, one
+    step on the card against the CPU, resuming the trained wn_moon from its
+    checkpoint (opt_state included), saving the run with the port's
+    CheckpointManager and serving the saved EMA through the generation
+    kernel, and the step's time, memory and kernels."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        from_jax_tree, to_jax_tree)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.stft import (
+        mel_spectrogram)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
+        WaveNetGenerator)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager, prepare_run_dir, restore_into_state)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask, batch_to_device)
+
+    cfg = C.load_config(WN_MOON)
+    w = cfg.wavenet
+    hop = cfg.audio.hop_size
+    cfg16 = C.overlay(cfg, wavenet={"compute_dtype": "bfloat16"})
+    out = {"card": smi, "B": TRAIN_B, "T": TRAIN_T,
+           "outputs_per_stream": TRAIN_T - w.receptive_field}
+
+    with phase("training batches: crops of the committed wn_moon wavs"):
+        clips = []
+        for f in sorted(os.listdir(TRAIN_WAVS)):
+            wav = load_wav(os.path.join(TRAIN_WAVS, f), cfg.audio.sample_rate)
+            mel = mel_spectrogram(torch.from_numpy(wav).to(dev), cfg.audio)
+            clips.append((wav, mel.T.cpu().numpy()))
+        rng = np.random.RandomState(11)
+        batch_np = crop_batch(clips, TRAIN_B, TRAIN_T, hop, rng)
+        cmp_np = crop_batch(clips, 1, TRAIN_CMP_T, hop, rng)
+        batch = batch_to_device(batch_np, dev)
+        log(f"  {len(clips)} wavs; batch {tuple(batch['input_wav'].shape)} "
+            f"audio, {tuple(batch['local_condition'].shape)} mel; "
+            f"comparison batch {cmp_np['input_wav'].shape}")
+
+    with phase(f"seeded training: {TRAIN_STEPS} Adam steps on one batch, "
+               f"f32 and bf16, B={TRAIN_B} T={TRAIN_T}"):
+        seeded_loss = {}
+        for name, c in (("float32", cfg), ("bfloat16", cfg16)):
+            task = WaveNetTask(c, device=dev)
+            state = task.init_state(0)
+            losses = []
+            for _ in range(TRAIN_STEPS):
+                state, m = task.train_step(state, batch)
+                losses.append(m["loss"])
+            losses = [float(x) for x in losses]
+            log(f"  {name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+                f"({', '.join(f'{x:.3f}' for x in losses)}); lr "
+                f"{float(m['learning_rate']):.6g}, grad_norm "
+                f"{float(m['grad_norm']):.4g}")
+            if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+                raise AssertionError(f"seeded {name} training did not "
+                                     "lower the loss")
+            seeded_loss[name] = losses
+        out["seeded_losses"] = seeded_loss
+        del state, task
+
+    with phase("resume wn_moon at step 260,250 (params, ema_params, "
+               "opt_state, step)"):
+        cpu = torch.device("cpu")
+        task = WaveNetTask(cfg, device=dev)
+        cpu_task = WaveNetTask(cfg, device=cpu)
+        t0 = time.perf_counter()
+        trained_cpu, start = restore_into_state(cpu_task.init_state(0),
+                                                WN_MOON, None)
+        restore_s = time.perf_counter() - t0
+        seeded = task.init_state(0)
+        state = from_jax_tree(seeded, to_jax_tree(trained_cpu))
+        lr = float(task.lr_schedule(state.step))
+        want_lr = w.learning_rate * w.decay_rate ** (start / w.decay_steps)
+        log(f"  restored step {start} in {restore_s:.2f}s (tarball, all "
+            f"four items); learning rate {lr:.7g} (expected {want_lr:.7g})")
+        if start != 260250 or abs(lr - want_lr) > 1e-7:
+            raise AssertionError("resumed step or learning rate wrong")
+        trained_eval = float(task.eval_step(state, batch)["loss"])
+        seeded_eval = float(task.eval_step(seeded, batch)["loss"])
+        log(f"  eval loss on the crop batch (EMA): trained {trained_eval:.4f}"
+            f", seeded {seeded_eval:.4f}")
+        if not trained_eval < seeded_eval:
+            raise AssertionError("trained loss is not below the seeded one")
+        out.update(resume_restore_s=restore_s, learning_rate=lr,
+                   trained_eval_loss=trained_eval,
+                   seeded_eval_loss=seeded_eval)
+
+    with phase(f"one step, card vs CPU: B=1 T={TRAIN_CMP_T}, trained "
+               "wn_moon (gated) and seeded weights"):
+        b_cpu, b_card = batch_to_device(cmp_np, cpu), batch_to_device(
+            cmp_np, dev)
+        cmp = {"trained": compare_step(task, cpu_task, state, trained_cpu,
+                                       b_card, b_cpu)}
+        log("  trained wn_moon: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in cmp["trained"].items()))
+        c = cmp["trained"]
+        if not (c["loss_rel"] <= TRAIN_LOSS_TOL
+                and c["graph_grad_err"] <= TRAIN_GRAD_TOL
+                and c["loss_grad_from_f64_card"]
+                <= TRAIN_F64_RATIO * c["loss_grad_from_f64_cpu"]
+                and c["update_err"] <= TRAIN_UPDATE_TOL):
+            raise AssertionError("the card's training step disagrees with "
+                                 "the CPU's")
+        cmp["seeded"] = compare_step(task, cpu_task, seeded,
+                                     cpu_task.init_state(0), b_card, b_cpu)
+        log("  seeded (printed; only the loss is bounded, see "
+            "TRAIN_CMP_T): " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                          cmp["seeded"].items()))
+        if not cmp["seeded"]["loss_rel"] <= TRAIN_LOSS_TOL:
+            raise AssertionError("the card's seeded loss disagrees with "
+                                 "the CPU's")
+
+        card16, cpu16 = (WaveNetTask(cfg16, device=d) for d in (dev, cpu))
+        l16_card, g16_card = card16.grads(state.params, b_card)
+        l16_cpu, g16_cpu = cpu16.grads(trained_cpu.params, b_cpu)
+        l32_cpu, g32_cpu = cpu_task.grads(trained_cpu.params, b_cpu)
+        d_loss = abs(float(l16_card["loss"]) - float(l16_cpu["loss"]))
+        n_loss = abs(float(l16_cpu["loss"]) - float(l32_cpu["loss"]))
+        d_grad = leaf_error(g16_card, g16_cpu)
+        n_grad = leaf_error(g32_cpu, g16_cpu)
+        log(f"  bf16, trained: |loss card - cpu| {d_loss:.3e} (bound "
+            f"{TRAIN_BF16_RATIO:g} x cpu |bf16 - f32| {n_loss:.3e}); "
+            f"gradient {d_grad:.3e} (bound {TRAIN_BF16_RATIO:g} x "
+            f"{n_grad:.3e})")
+        if not (d_loss <= TRAIN_BF16_RATIO * n_loss
+                and d_grad <= TRAIN_BF16_RATIO * n_grad):
+            raise AssertionError("the card's bf16 step is outside bf16's "
+                                 "noise")
+        cmp["bf16_trained"] = {"loss": d_loss, "loss_bound": n_loss,
+                               "grad": d_grad, "grad_bound": n_grad}
+        out["card_vs_cpu"] = cmp
+        del trained_cpu, cpu_task, card16, cpu16
+
+    with phase(f"{TRAIN_RESUME_STEPS} resumed steps, saved by "
+               "CheckpointManager (max_to_keep 2)"):
+        counts = [int(state.opt_state[0]["count"]),
+                  int(state.opt_state[1]["count"])]
+        run = os.path.join(tmp, "wn_run")
+        prepare_run_dir(run, cfg)
+        mgr = CheckpointManager(run, max_to_keep=2)
+        resumed = []
+        for i in range(TRAIN_RESUME_STEPS):
+            state, m = task.train_step(state, batch)
+            resumed.append(float(m["loss"]))
+            if i >= TRAIN_RESUME_STEPS - 3:     # three saves, two kept
+                mgr.save(int(state.step), state)
+        new_counts = [int(state.opt_state[0]["count"]),
+                      int(state.opt_state[1]["count"])]
+        log(f"  losses {resumed}; step {int(state.step)}, counts {counts} "
+            f"-> {new_counts}")
+        if (int(state.step) != 260250 + TRAIN_RESUME_STEPS
+                or new_counts != [c + TRAIN_RESUME_STEPS for c in counts]
+                or not np.isfinite(resumed).all()):
+            raise AssertionError("resumed steps did not advance as expected")
+        out["resumed_losses"] = resumed
+
+    with phase("save with CheckpointManager (max_to_keep 2), read back, "
+               "serve the EMA through the kernel"):
+        steps = mgr.all_steps()
+        want_steps = [260250 + TRAIN_RESUME_STEPS - 1,
+                      260250 + TRAIN_RESUME_STEPS]
+        back = mgr.restore(state)
+        same = all(torch.equal(a, b) for part in ("params", "ema_params")
+                   for a, b in zip(getattr(back, part).values(),
+                                   getattr(state, part).values()))
+        same = same and all(torch.equal(back.opt_state[0][m][k],
+                                        state.opt_state[0][m][k])
+                            for m in ("mu", "nu") for k in state.params)
+        log(f"  kept steps {steps} (expected {want_steps}); the latest reads "
+            f"back bit-equal: {same}")
+        if steps != want_steps or not same or int(back.step) != int(
+                state.step):
+            raise AssertionError("saved run dir wrong")
+        mel = np.load(E2E_MEL).astype(np.float32)[:TRAIN_SERVE_FRAMES]
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        gen = WaveNetGenerator.from_checkpoint(run, device="cuda")
+        t0 = time.perf_counter()
+        wav = gen.generate(mel, seed=0)
+        serve_s = time.perf_counter() - t0
+        launches = dict(wavenet_generate.variant_launches)
+        log(f"  served step {gen.step} (EMA, {gen.weight_dtype}): "
+            f"{wav.shape[0]} samples in {serve_s:.2f}s, peak "
+            f"{np.abs(wav).max():.3f}; kernel launches {launches}")
+        if (gen.step != int(state.step) or launches != {"mol-bfloat16": 1}
+                or wav.shape != (TRAIN_SERVE_FRAMES * hop,)
+                or not np.isfinite(wav).all() or np.abs(wav).max() > 1):
+            raise AssertionError("serving the saved run failed")
+        out["serve"] = {"step": gen.step, "samples": int(wav.shape[0]),
+                        "launches": launches}
+        del gen, back, state
+
+    with phase(f"training step time at B={TRAIN_B} T={TRAIN_T}"):
+        timing = {}
+        for name, c in (("float32", cfg), ("bfloat16", cfg16)):
+            task = WaveNetTask(c, device=dev)
+            state = task.init_state(2)
+            state, _ = task.train_step(state, batch)        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(TRAIN_REPS):
+                holder = [state]
+
+                def step():
+                    holder[0] = task.train_step(holder[0], batch)[0]
+                times.append(cuda_ms(step))
+                state = holder[0]
+            peak = torch.cuda.max_memory_allocated()
+            kernels, launch_calls, device_us = kernel_count(
+                lambda: task.train_step(state, batch))
+            times.sort()
+            timing[name] = {"ms_min": times[0],
+                            "ms_median": times[len(times) // 2],
+                            "ms_max": times[-1],
+                            "peak_mem_gb": peak / 1e9,
+                            "kernels_per_step": kernels,
+                            "launch_calls_per_step": launch_calls,
+                            "device_ms_per_step": device_us / 1e3,
+                            "samples_per_s": TRAIN_B * TRAIN_T / (
+                                times[len(times) // 2] / 1e3)}
+            log(f"  {name}: {times[0]:.1f} / {times[len(times) // 2]:.1f} / "
+                f"{times[-1]:.1f} ms per step (min / median / max of "
+                f"{TRAIN_REPS}); peak {peak / 1e9:.2f} GB; {kernels} CUDA "
+                f"kernels ({launch_calls} launch calls), device busy "
+                f"{device_us / 1e3:.1f} ms per step [{smi}]")
+            del state, task
+        out["step_time"] = timing
+    return out
+
+
 def tts_phases(dev, smi, tmp) -> dict:
     """The port's entry point with both trained checkpoints: one
     ``TTSPipeline.tts`` call on 4 texts (Tacotron, Griffin-Lim and vocoder
@@ -1421,6 +1766,12 @@ def main() -> int:
                         f"(x{t['parent'] / t['kernel']:.2f})"
                         for v, t in side.items()) + f" [{smi}]")
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train = training_phases(dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     kernels = []
     for v, t in timing.items():
         if main_launches.get(v, 0) < 1:
@@ -1447,6 +1798,8 @@ def main() -> int:
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]
+        if v in train["serve"]["launches"]:
+            entry["launches_train_serve"] = train["serve"]["launches"][v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -1456,6 +1809,7 @@ def main() -> int:
     print(json.dumps({"tacotron": taco}))
     print(json.dumps({"trained": trained}))
     print(json.dumps({"tts": dict(tts, card=smi)}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

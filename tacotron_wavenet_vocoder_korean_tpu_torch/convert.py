@@ -3,8 +3,12 @@
 
 WaveNet: the port's state is a flat dict of float32 tensors keyed by the
 JAX flat names, nested flax names joined by ``/`` (``post_1/kernel``,
-``upsampler/upsample_0/kernel``).  Weight-normalized trees are folded first,
-as the JAX package's ``materialize_wn_params`` folds them.
+``upsampler/upsample_0/kernel``).  For serving, weight-normalized trees are
+folded first, as the JAX package's ``materialize_wn_params`` folds them.
+For training the pairs stay unfolded (``train_param_shapes``), and the
+whole train state maps to the JAX tree and back (``to_jax_tree``,
+``from_jax_tree``): ``step``, ``params``, ``ema_params`` and ``opt_state``
+in optax's layout (``train/optim.py``).
 
 Tacotron: the port's state is the ``state_dict`` of its ``nn.Module``s,
 whose attribute paths follow the flax scopes (``encoder_cbhg.proj_1.conv``
@@ -20,7 +24,7 @@ nothing else may be left over.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,6 +160,139 @@ def seeded_tree(cfg: WaveNetConfig, seed: int) -> Dict[str, np.ndarray]:
 def seeded_params(cfg: WaveNetConfig, seed: int,
                   device: Optional[torch.device] = None) -> Params:
     return params_from_jax(cfg, seeded_tree(cfg, seed), device)
+
+
+# Names whose leaves are not weight-normalized in training.
+_PLAIN = ("gc_embedding", "upsampler/")
+
+
+def train_param_shapes(cfg: WaveNetConfig, gc_enable: bool = False
+                       ) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter of the training graph with its shape, named as the
+    JAX ``WaveNet.init`` names it.  ``gc_embedding`` and the speaker
+    projections exist when ``gc_enable`` is set and the config has more
+    than one speaker.  With ``weight_normalization`` each stack and post
+    kernel ``<name>`` is a pair ``<name>_v`` (its shape) and ``<name>_g``
+    (its last axis), and the post layers are flat: ``post_N_kernel_v``,
+    ``post_N_bias``."""
+    shapes = {}
+    for k, shape in param_shapes(cfg).items():
+        if "_gc_" in k or k == "gc_embedding":
+            if not gc_enable:
+                continue
+        if cfg.weight_normalization:
+            k = k.replace("/", "_") if k.startswith("post_") else k
+            if not (k.startswith(_PLAIN) or k.endswith("bias")):
+                shapes[k + "_v"] = shape
+                shapes[k + "_g"] = (shape[-1],)
+                continue
+        shapes[k] = shape
+    return shapes
+
+
+def _glorot_std(shape: Tuple[int, ...]) -> float:
+    rf = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+    return float(np.sqrt(2.0 / (shape[-2] * rf + shape[-1] * rf)))
+
+
+def seeded_train_tree(cfg: WaveNetConfig, seed: int,
+                      gc_enable: bool = False) -> Dict[str, np.ndarray]:
+    """Initial training parameters in the JAX layout, drawn with numpy from
+    ``seed`` from flax's distributions: truncated-normal glorot for the
+    stack kernels and ``gc_embedding``, truncated-normal lecun for the post
+    and upsampler kernels, zero biases; with weight norm, ``_v`` as the
+    kernel and ``_g`` at the analytic glorot column norm
+    ``std * sqrt(prod(shape[:-1]))``."""
+    rng = np.random.default_rng(seed)
+    shapes = train_param_shapes(cfg, gc_enable)
+    out = {}
+    for k, shape in shapes.items():
+        if cfg.weight_normalization and k.endswith("_g"):
+            v_shape = shapes[k[:-2] + "_v"]
+            g0 = _glorot_std(v_shape) * float(np.sqrt(np.prod(v_shape[:-1])))
+            v = np.full(shape, g0)
+        elif k.endswith("bias"):
+            v = np.zeros(shape)
+        elif k.startswith(("post_", "upsampler/")):
+            fan_in = int(np.prod(shape[:-1]))
+            v = _truncated_normal(rng, shape) / np.sqrt(fan_in)
+            v /= .87962566103423978
+        else:
+            v = (_truncated_normal(rng, shape) * _glorot_std(shape)
+                 / .87962566103423978)
+        out[k] = v.astype(np.float32)
+    return out
+
+
+def to_jax_tree(node: Any) -> Any:
+    """The port's train state (or any part of it) as the JAX tree of numpy
+    arrays, its nodes in the order JAX flattens them: a named tuple becomes
+    the dict of its fields in field order, a dict's ``/``-joined keys
+    become nested dicts with sorted keys, tensors become arrays."""
+    if isinstance(node, torch.Tensor):
+        return node.detach().cpu().numpy()
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return {k: to_jax_tree(v) for k, v in node._asdict().items()}
+    if isinstance(node, tuple):
+        return tuple(to_jax_tree(v) for v in node)
+    if isinstance(node, Mapping):
+        out: dict = {}
+        for k, v in node.items():
+            *heads, leaf = k.split("/")
+            d = out
+            for h in heads:
+                d = d.setdefault(h, {})
+            d[leaf] = to_jax_tree(v)
+        return _sorted(out)
+    return np.asarray(node)
+
+
+def _sorted(d: dict) -> dict:
+    return {k: _sorted(d[k]) if isinstance(d[k], dict) else d[k]
+            for k in sorted(d)}
+
+
+def _count_leaves(node: Any) -> int:
+    if isinstance(node, Mapping):
+        return sum(_count_leaves(v) for v in node.values())
+    if isinstance(node, (tuple, list)):
+        return sum(_count_leaves(v) for v in node)
+    return 1
+
+
+def from_jax_tree(template: Any, node: Any, path: str = "") -> Any:
+    """The inverse of ``to_jax_tree``, laid out as ``template`` (the port's
+    state, or any part of it): every leaf of the template is looked up in
+    the JAX tree ``node`` and must have the template's shape and dtype; it
+    comes back as a tensor on the template leaf's device.  A leaf of
+    ``node`` that the template does not hold raises, as a missing one
+    does."""
+    if isinstance(template, torch.Tensor):
+        arr = np.asarray(node)
+        dtype = torch.from_numpy(np.zeros(0, arr.dtype)).dtype
+        if arr.shape != tuple(template.shape) or dtype != template.dtype:
+            raise ValueError(f"{path}: {arr.dtype}{list(arr.shape)}, expected "
+                             f"{template.dtype}{list(template.shape)}")
+        return torch.from_numpy(np.array(arr)).to(template.device)
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(**from_jax_tree(template._asdict(), node, path))
+    if isinstance(template, tuple):
+        if not isinstance(node, (tuple, list)) or len(node) != len(template):
+            raise KeyError(f"{path}: expected a sequence of {len(template)}")
+        return tuple(from_jax_tree(t, n, f"{path}/{i}")
+                     for i, (t, n) in enumerate(zip(template, node)))
+    out = {}
+    for k, t in template.items():
+        sub = node
+        for part in k.split("/"):
+            if not isinstance(sub, Mapping) or part not in sub:
+                raise KeyError(f"{path}/{k}: not in the tree")
+            sub = sub[part]
+        out[k] = from_jax_tree(t, sub, f"{path}/{k}")
+    if _count_leaves(node) != _count_leaves(template):
+        raise KeyError(f"{path or '/'}: the tree holds leaves the port does "
+                       "not")
+    return out
 
 
 # ---------------------------------------------------------------------------

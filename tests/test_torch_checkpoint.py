@@ -25,7 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TARBALL = {name: os.path.join(REPO, "artifacts", f"{name}.ckpt.tar.gz")
            for name in ("wn_moon", "both_r2")}
 STEP = {"wn_moon": 260250, "both_r2": 106000}
-ITEMS = {"wn_moon": ("step", "params", "ema_params"),
+ITEMS = {"wn_moon": ("step", "params", "ema_params", "opt_state"),
          "both_r2": ("step", "params", "batch_stats")}
 NODE_MAGICS = (ocdbt.NODE_MAGIC.to_bytes(4, "big"),
                ocdbt.MANIFEST_MAGIC.to_bytes(4, "big"))
@@ -52,6 +52,9 @@ def flat(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from flat(v, prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from flat(v, prefix + (str(i),))
     else:
         yield prefix, tree
 
@@ -257,8 +260,10 @@ def test_ocdbt_checks_magic_length_version_and_crc(run_dirs, tmp_path):
 
 @pytest.mark.parametrize("name", ["wn_moon", "both_r2"])
 def test_restore_equals_orbax_bit_for_bit(run_dirs, name):
-    """Every leaf of step, params, ema_params / batch_stats: same dtype,
-    shape and bytes as Orbax's StandardCheckpointer restores."""
+    """Every leaf of step, params, ema_params and opt_state (wn_moon: the
+    Adam moments and both counts, under sequence indices) / batch_stats:
+    same dtype, shape and bytes as Orbax's StandardCheckpointer
+    restores."""
     reader = CheckpointReader(run_dirs[name])
     assert reader.latest_step() == STEP[name]
     got = dict(flat(reader.restore(items=ITEMS[name])))
@@ -271,6 +276,10 @@ def test_restore_equals_orbax_bit_for_bit(run_dirs, name):
         assert g.tobytes() == w.tobytes(), k
     assert reader.decoded_bytes == sum(v.nbytes for v in got.values())
     assert int(got[("step",)]) == STEP[name]
+    if name == "wn_moon":
+        assert sum(k[0] == "opt_state" for k in got) == 1018
+        for k in (("opt_state", "0", "count"), ("opt_state", "1", "count")):
+            assert int(got[k]) == STEP[name]
 
 
 def test_reader_takes_the_tarball_the_run_dir_and_its_ckpt_dir(run_dirs):
@@ -286,8 +295,8 @@ def test_reader_takes_the_tarball_the_run_dir_and_its_ckpt_dir(run_dirs):
     assert b.config() == CheckpointReader(run_dirs["wn_moon"]).config()
     with pytest.raises(KeyError, match="opt"):
         b.restore(items=("opt",))
-    with pytest.raises(ValueError, match="dict keys"):       # not served
-        b.restore(items=("opt_state",))
+    adam, schedule = b.restore(items=("opt_state",))["opt_state"]
+    assert set(adam) == {"count", "mu", "nu"} and set(schedule) == {"count"}
 
 
 @pytest.mark.parametrize("change", ["chunks", "order", "filters",
@@ -315,3 +324,210 @@ def test_restore_refuses_layouts_it_does_not_read(run_dirs, monkeypatch,
     error = KeyError if change == "no_chunk" else ValueError
     with pytest.raises(error, match="params"):
         CheckpointReader(run_dirs["wn_moon"]).restore(items=("params",))
+
+
+# ---------------------------------------------------------------------------
+# (d) writing: CheckpointManager, restore_into_state
+# ---------------------------------------------------------------------------
+
+def _tiny_run(clip: bool):
+    """A TINY WaveNet config (the hop of the default audio), the JAX task's
+    state after one step as numpy, and the port's state holding the same
+    arrays."""
+    import jax
+    from tacotron_wavenet_vocoder_korean_tpu import config as JC
+    from tacotron_wavenet_vocoder_korean_tpu.train.wavenet_task import (
+        WaveNetTask as JaxTask)
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as PC
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        from_jax_tree)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask)
+    from torch_port_util import plain
+    over = {"dilations": [1, 2, 4, 1, 2, 4], "residual_channels": 8,
+            "dilation_channels": 8, "skip_channels": 16, "out_channels": 12,
+            "initial_filter_width": 8, "sample_size": 1500, "batch_size": 2,
+            "clip_gradients": clip}
+    jcfg = JC.overlay(JC.Config(), wavenet=over)
+    pcfg = PC.overlay(PC.Config(), wavenet=over)
+    rng = np.random.RandomState(0)
+    batch = {"input_wav": rng.uniform(-0.5, 0.5, (2, 1500, 1)).astype(
+        np.float32), "local_condition": rng.randn(2, 5, 80).astype(np.float32),
+        "speaker_id": np.zeros(2, np.int32)}
+    task = JaxTask(jcfg)
+    state = task.init_state(jax.random.PRNGKey(0), batch)
+    state, _ = jax.jit(task.train_step)(state, batch)
+    jstate = jax.tree.map(np.asarray, state)
+    port = from_jax_tree(WaveNetTask(pcfg, device="cpu").init_state(0),
+                         plain(jstate))
+    return jcfg, pcfg, jstate, port
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def test_written_run_dir_has_orbax_non_ocdbt_layout(tmp_path):
+    """The port's save of a train state (clip on: an EmptyState node)
+    against Orbax's StandardCheckpointHandler(use_ocdbt=False) save of the
+    same tree: the same files; _METADATA byte for byte; each .zarray equal
+    but for the compressor (the port writes none, Orbax zstd); each chunk
+    the bytes of Orbax's chunk decompressed; _CHECKPOINT_METADATA with the
+    same keys and handler.  The port's reader restores Orbax's save bit for
+    bit."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+    _, _, jstate, port = _tiny_run(clip=True)
+    mgr = ocp.CheckpointManager(
+        str(tmp_path / "orbax" / "ckpt"),
+        options=ocp.CheckpointManagerOptions(max_to_keep=3, create=True),
+        item_handlers=ocp.StandardCheckpointHandler(use_ocdbt=False))
+    mgr.save(7, args=ocp.args.StandardSave(jstate))
+    mgr.wait_until_finished()
+    mgr.close()
+    CheckpointManager(str(tmp_path / "port")).save(7, port)
+    want = tmp_path / "orbax" / "ckpt" / "7"
+    got = tmp_path / "port" / "ckpt" / "7"
+    assert _files(got) == _files(want)
+    read = lambda p: open(p, "rb").read()
+    assert read(got / "default" / "_METADATA") == read(
+        want / "default" / "_METADATA")
+    meta = json.loads(read(got / "default" / "_METADATA"))
+    assert {"value_type": "None", "skip_deserialize": True} in [
+        v["value_metadata"] for v in meta["tree_metadata"].values()]
+    n = 0
+    for f in _files(got / "default"):
+        if f.endswith(".zarray"):
+            g, w = json.loads(read(got / "default" / f)), json.loads(
+                read(want / "default" / f))
+            assert g["compressor"] is None and w["compressor"]["id"] == "zstd"
+            assert dict(g, compressor=None) == dict(w, compressor=None), f
+        elif not f.startswith("_"):
+            dec = zstandard.ZstdDecompressor().decompressobj()
+            assert read(got / "default" / f) == dec.decompress(
+                read(want / "default" / f)), f
+            n += 1
+    assert n == sum(1 for _ in flat(port._asdict()))
+    g, w = (json.loads(read(p / "_CHECKPOINT_METADATA")) for p in (got, want))
+    assert set(g) == set(w) and g["item_handlers"] == w["item_handlers"]
+    restored = CheckpointReader(str(tmp_path / "orbax")).restore(items=None)
+    for k, v in flat(jax_tree_plain(jstate)):
+        r = dict(flat(restored))[k]
+        assert r.dtype == v.dtype and r.tobytes() == v.tobytes(), k
+
+
+def jax_tree_plain(tree):
+    from torch_port_util import plain
+    return plain(tree)
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["adam", "clip_adam"])
+def test_jax_package_restores_and_serves_a_port_run_dir(tmp_path, clip):
+    """A run dir the port wrote (prepare_run_dir + CheckpointManager.save):
+    the JAX CheckpointManager restores it into the JAX task's state bit for
+    bit, and the JAX WaveNetGenerator().load serves its EMA (as
+    tests/test_e2e.py serves a JAX run dir): finite wavs in [-1, 1].  The
+    port's WaveNetGenerator.from_checkpoint serves the same EMA."""
+    import jax
+    from tacotron_wavenet_vocoder_korean_tpu.synth.generator import (
+        WaveNetGenerator as JaxGenerator)
+    from tacotron_wavenet_vocoder_korean_tpu.train.checkpoints import (
+        CheckpointManager as JaxManager)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager, prepare_run_dir)
+    jcfg, pcfg, jstate, port = _tiny_run(clip)
+    log_dir = str(tmp_path / "run")
+    prepare_run_dir(log_dir, pcfg)
+    CheckpointManager(log_dir).save(int(port.step), port)
+    template = jax.tree.map(np.zeros_like, jstate)
+    got = JaxManager(log_dir).restore(template)
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(jstate))
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jstate)):
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    gen = JaxGenerator().load(log_dir)
+    assert gen.step == 1
+    np.testing.assert_array_equal(np.asarray(gen.params["post_1"]["kernel"]),
+                                  jstate.ema_params["post_1"]["kernel"])
+    wav = gen.generate(np.random.RandomState(1).randn(4, 80).astype(
+        np.float32))
+    assert wav.shape == (4 * 300,) and np.isfinite(wav).all()
+    assert np.abs(wav).max() <= 1.0
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import flatten
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
+        WaveNetGenerator)
+    port_gen = WaveNetGenerator.from_checkpoint(log_dir, device="cpu")
+    assert port_gen.step == 1
+    want = flatten(jax.tree.map(np.asarray, gen.params))
+    assert set(want) == set(port_gen.params)
+    for k, v in want.items():
+        assert np.array_equal(port_gen.params[k].numpy(), v), k
+
+
+def test_restore_into_state_load_and_initialize_semantics(tmp_path):
+    """load_path keeps the saved step, initialize_path resets it to 0 and
+    keeps the weights and optimizer state, both raise, neither returns the
+    state as given; a run dir, its ckpt/ dir and a tarball of it read the
+    same; a leaf of the wrong shape raises."""
+    import dataclasses
+    import torch
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager, restore_into_state)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask)
+    _, pcfg, _, port = _tiny_run(clip=False)
+    port = port._replace(step=torch.tensor(42, dtype=torch.int32))
+    run = tmp_path / "run"
+    CheckpointManager(str(run)).save(42, port)
+    with tarfile.open(tmp_path / "run.ckpt.tar.gz", "w:gz") as tar:
+        tar.add(run, arcname=".")
+    fresh = WaveNetTask(pcfg, device="cpu").init_state(5)
+    for src in (run, run / "ckpt", tmp_path / "run.ckpt.tar.gz"):
+        state, start = restore_into_state(fresh, str(src), None)
+        assert start == 42 and int(state.step) == 42
+        for k, v in port.params.items():
+            assert torch.equal(state.params[k], v), k
+        assert torch.equal(state.opt_state[0]["mu"]["post_1/kernel"],
+                           port.opt_state[0]["mu"]["post_1/kernel"])
+    state, start = restore_into_state(fresh, None, str(run))
+    assert start == 0 and int(state.step) == 0
+    assert int(state.opt_state[0]["count"]) == 1
+    assert torch.equal(state.ema_params["causal_kernel"],
+                       port.ema_params["causal_kernel"])
+    assert restore_into_state(fresh, None, None) == (fresh, 0)
+    with pytest.raises(ValueError, match="exclusive"):
+        restore_into_state(fresh, str(run), str(run))
+    wide = dataclasses.replace(pcfg, wavenet=dataclasses.replace(
+        pcfg.wavenet, skip_channels=32))
+    with pytest.raises(ValueError, match="skip_kernel.*expected"):
+        restore_into_state(WaveNetTask(wide, device="cpu").init_state(0),
+                           str(run), None)
+
+
+def test_checkpoint_manager_keeps_max_to_keep_and_refuses_a_step_twice(
+        tmp_path):
+    """max_to_keep 2 over saves 1, 5, 9: steps 5 and 9 remain, 9 is the
+    latest and restores as saved; saving step 9 again raises; no temporary
+    directory is left behind."""
+    import torch
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+    tree = {"step": torch.tensor(0, dtype=torch.int32),
+            "params": {"post_1/kernel": torch.zeros(2, 3)}}
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
+    for step in (1, 5, 9):
+        tree = {"step": torch.tensor(step, dtype=torch.int32),
+                "params": {"post_1/kernel": torch.full((2, 3), float(step))}}
+        mgr.save(step, tree)
+    assert mgr.all_steps() == [5, 9] and mgr.latest_step() == 9
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["5", "9"]
+    got = mgr.restore()
+    assert int(got["step"]) == 9
+    assert (got["params"]["post_1"]["kernel"] == 9.0).all()
+    back = mgr.restore(tree, step=5)
+    assert torch.equal(back["params"]["post_1/kernel"], torch.full((2, 3), 5.))
+    with pytest.raises(FileExistsError):
+        mgr.save(9, tree)
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["5", "9"]

@@ -80,5 +80,20 @@ def nest(flat):
     return out
 
 
+def plain(tree):
+    """A JAX tree as Orbax writes it: named tuples as dicts of their
+    fields (optax's EmptyState() as an empty tuple), tuples as tuples,
+    arrays as numpy."""
+    if hasattr(tree, "_fields"):
+        if not tree._fields:
+            return ()
+        return {k: plain(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(plain(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: plain(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))
