@@ -36,17 +36,24 @@ seeded weights over the served 200 steps in bf16 with prenet dropout, as
 trained phases read ``artifacts/wn_moon.ckpt.tar.gz`` (``ema_params``) and
 ``artifacts/both_r2.ckpt.tar.gz`` (``params``, ``batch_stats``).
 
-Last, WaveNet training at the ``wn_moon`` width on crops of the committed
-``samples/wn_moon_260k`` wavs (B = 8, 15,000 samples, as its
-``params.json`` trains): 20 seeded Adam steps in f32 and in bf16, one
-step on the card against the CPU (f32 and bf16), resuming ``wn_moon`` from
-its tarball at step 260,250 with its optimizer state, three saves with the
-port's ``CheckpointManager`` (two kept), the saved EMA served through one
-kernel launch, and the step's time, peak memory and kernels.
+Last, WaveNet training and its data pipeline.  The committed
+``samples/wn_moon_260k`` wavs become a moon-layout corpus, preprocessed
+on the card by the ``preprocess`` CLI and held against the CPU.  On
+``WaveNetBatcher`` crops of it at the ``wn_moon`` width (B = 8, 15,000
+samples, as its ``params.json`` trains): 20 seeded Adam steps in f32 and
+in bf16, one step on the card against the CPU (f32 and bf16), resuming
+``wn_moon`` from its tarball at step 260,250 with its optimizer state,
+three saves with the port's ``CheckpointManager`` (two kept), the saved
+EMA served through one kernel launch, and the step's time, peak memory
+and kernels.  Then the batcher's device store against its host path and
+the prefetcher, ``wn_moon`` resumed through the ``train_vocoder`` CLI for
+40 steps and its run resumed again for 10, a seeded two-speaker run, the
+run served through the ``generate`` CLI (one kernel launch), and the
+feeder's wait share with the store on and off.
 
 Wavs, run dirs and unpacked checkpoints go to temporary directories that
-are removed.  A ``tacotron``, a ``trained``, a ``tts`` and a ``train`` JSON
-line carry those phases' numbers; the last line is ``{"ok": true,
+are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train`` and a
+``data`` JSON line carry those phases' numbers; the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -158,8 +165,8 @@ GL_REPS = 5
 TTS_TEXTS = [TEXT0] + TEXTS[1:]
 TTS_SPEAKERS = [0, 1, 0, 1]
 CLI_TIMEOUT_S = 300
-# WaveNet training at the wn_moon width: crops of the committed wavs that
-# the trained wn_moon made, hop-aligned, with the port's mel analysis.
+# WaveNet training at the wn_moon width: WaveNetBatcher crops of the
+# committed wavs that the trained wn_moon made, preprocessed by the port.
 TRAIN_WAVS = os.path.join(REPO, "samples", "wn_moon_260k")
 TRAIN_B, TRAIN_T = 8, 15000       # params.json's batch_size and sample_size
 TRAIN_STEPS = 20                  # seeded Adam steps on one fixed batch
@@ -183,6 +190,33 @@ TRAIN_BF16_RATIO = 2.0            # card bf16 vs CPU bf16, against bf16 - f32
 TRAIN_RESUME_STEPS = 5
 TRAIN_REPS = 10                   # timed steps, after a warm-up
 TRAIN_SERVE_FRAMES = 40
+
+# The data pipeline and the training CLI: the committed wn_moon_260k clips
+# as a moon-layout corpus (text 0 for every clip), preprocessed on the
+# card by the port's CLI with 4 workers (before the training phases, which
+# train on it) and held against the CPU on DATA_CMP_CLIPS.  After the
+# training phases: the batcher's device store against its host path and
+# the prefetcher (DATA_BATCHES batches of wn_moon's B = 8, T = 15,000);
+# wn_moon resumed through the train_vocoder CLI to DATA_RESUME_TO and then
+# DATA_RESUME_MORE (boundaries as DATA_HPARAMS); a seeded two-speaker run
+# of DATA_GC_STEPS steps; the run served through the generate CLI; the
+# feeder's wait share over DATA_FEED_STEPS steps with the store on and
+# off.  DATA_OVERRIDES cuts the batch for a rehearsal on the CPU (empty on
+# the card), DATA_SERVE_MEL the mel served.
+DATA_CMP_CLIPS = ("003.0000.wn.wav", "006.0028.wn.wav",
+                  "NB10584578.0000.wn.wav", "NB10585784.0007.wn.wav")
+DATA_MEL_TOL = 1e-4
+DATA_LIN_F64_RATIO = 2.0
+DATA_F16_ATOL, DATA_F16_RTOL = 4e-3, 2e-3
+DATA_BATCHES = 5
+DATA_START = 260250
+DATA_RESUME_TO, DATA_RESUME_MORE = 260290, 260300
+DATA_HPARAMS = ("train.sync_every=10,train.summary_interval=20,"
+                "train.test_interval=20")
+DATA_GC_STEPS = 10
+DATA_FEED_STEPS = 20
+DATA_OVERRIDES: dict = {}
+DATA_SERVE_MEL = E2E_MEL
 
 
 def log(msg: str) -> None:
@@ -920,24 +954,6 @@ def griffin_lim_phases(dev, smi, synth, tmp) -> dict:
     return out
 
 
-def crop_batch(clips, B: int, T: int, hop: int, rng) -> dict:
-    """B hop-aligned crops of T samples (and their T // hop mel frames)
-    from ``clips`` [(wav, mel [frames, num_mels])], clip and start drawn
-    from ``rng``."""
-    frames = T // hop
-    long_enough = [c for c in clips if min(len(c[1]), len(c[0]) // hop)
-                   >= frames]
-    audio, mels = [], []
-    for _ in range(B):
-        wav, mel = long_enough[rng.randint(len(long_enough))]
-        n = min(len(mel), len(wav) // hop)
-        s = rng.randint(n - frames + 1)
-        audio.append(wav[s * hop:s * hop + T])
-        mels.append(mel[s:s + frames])
-    return {"input_wav": np.stack(audio)[:, :, None].astype(np.float32),
-            "local_condition": np.stack(mels).astype(np.float32)}
-
-
 def leaf_error(a: dict, b: dict) -> float:
     """max over leaves of max |a - b| / max |b| (a zero leaf of b must be
     zero in a)."""
@@ -993,20 +1009,18 @@ def compare_step(card_task, cpu_task, card_state, cpu_state, b_card,
             {k: new_cpu.params[k] - cpu_state.params[k] for k in keys})}
 
 
-def training_phases(dev, smi, tmp) -> dict:
+def training_phases(dev, smi, tmp, data: str) -> dict:
     """WaveNet training at the wn_moon width (raw input, MoL of 10, 50
-    layers, R = D = 32, S = 512): seeded Adam steps in f32 and bf16, one
-    step on the card against the CPU, resuming the trained wn_moon from its
-    checkpoint (opt_state included), saving the run with the port's
-    CheckpointManager and serving the saved EMA through the generation
-    kernel, and the step's time, memory and kernels."""
+    layers, R = D = 32, S = 512) on batches of the corpus ``data``: seeded
+    Adam steps in f32 and bf16, one step on the card against the CPU,
+    resuming the trained wn_moon from its checkpoint (opt_state included),
+    saving the run with the port's CheckpointManager and serving the saved
+    EMA through the generation kernel, and the step's time, memory and
+    kernels."""
     from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
     from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
         from_jax_tree, to_jax_tree)
-    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
-        load_wav)
-    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.stft import (
-        mel_spectrogram)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import WaveNetBatcher
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
         wavenet_generate)
     from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
@@ -1023,19 +1037,15 @@ def training_phases(dev, smi, tmp) -> dict:
     out = {"card": smi, "B": TRAIN_B, "T": TRAIN_T,
            "outputs_per_stream": TRAIN_T - w.receptive_field}
 
-    with phase("training batches: crops of the committed wn_moon wavs"):
-        clips = []
-        for f in sorted(os.listdir(TRAIN_WAVS)):
-            wav = load_wav(os.path.join(TRAIN_WAVS, f), cfg.audio.sample_rate)
-            mel = mel_spectrogram(torch.from_numpy(wav).to(dev), cfg.audio)
-            clips.append((wav, mel.T.cpu().numpy()))
-        rng = np.random.RandomState(11)
-        batch_np = crop_batch(clips, TRAIN_B, TRAIN_T, hop, rng)
-        cmp_np = crop_batch(clips, 1, TRAIN_CMP_T, hop, rng)
-        batch = batch_to_device(batch_np, dev)
-        log(f"  {len(clips)} wavs; batch {tuple(batch['input_wav'].shape)} "
-            f"audio, {tuple(batch['local_condition'].shape)} mel; "
-            f"comparison batch {cmp_np['input_wav'].shape}")
+    with phase("training batches: WaveNetBatcher over the corpus"):
+        batch = next(iter(WaveNetBatcher([data], cfg, seed=11,
+                                         device_store=True, device=dev)))
+        cmp_cfg = C.overlay(cfg, wavenet={"sample_size": TRAIN_CMP_T})
+        cmp_np = next(iter(WaveNetBatcher([data], cmp_cfg, batch_size=1,
+                                          seed=12)))
+        log(f"  batch {tuple(batch['input_wav'].shape)} audio, "
+            f"{tuple(batch['local_condition'].shape)} mel (device store); "
+            f"comparison batch {cmp_np.input_wav.shape}")
 
     with phase(f"seeded training: {TRAIN_STEPS} Adam steps on one batch, "
                f"f32 and bf16, B={TRAIN_B} T={TRAIN_T}"):
@@ -1078,7 +1088,7 @@ def training_phases(dev, smi, tmp) -> dict:
             raise AssertionError("resumed step or learning rate wrong")
         trained_eval = float(task.eval_step(state, batch)["loss"])
         seeded_eval = float(task.eval_step(seeded, batch)["loss"])
-        log(f"  eval loss on the crop batch (EMA): trained {trained_eval:.4f}"
+        log(f"  eval loss on the batch (EMA): trained {trained_eval:.4f}"
             f", seeded {seeded_eval:.4f}")
         if not trained_eval < seeded_eval:
             raise AssertionError("trained loss is not below the seeded one")
@@ -1088,8 +1098,9 @@ def training_phases(dev, smi, tmp) -> dict:
 
     with phase(f"one step, card vs CPU: B=1 T={TRAIN_CMP_T}, trained "
                "wn_moon (gated) and seeded weights"):
-        b_cpu, b_card = batch_to_device(cmp_np, cpu), batch_to_device(
-            cmp_np, dev)
+        b_cpu, b_card = (
+            {k: v for k, v in batch_to_device(cmp_np, d).items()
+             if k != "speaker_id"} for d in (cpu, dev))
         cmp = {"trained": compare_step(task, cpu_task, state, trained_cpu,
                                        b_card, b_cpu)}
         log("  trained wn_moon: " + ", ".join(
@@ -1228,6 +1239,410 @@ def training_phases(dev, smi, tmp) -> dict:
             del state, task
         out["step_time"] = timing
     return out
+
+
+def features_f64(wav: np.ndarray, a) -> tuple:
+    """extract_features in float64 numpy (mel, linear): the reference the
+    card's and the CPU's float32 spectrograms are measured from."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.stft import (
+        hann_window, mel_basis)
+    y = wav.astype(np.float64)
+    y = np.concatenate([y[:1], y[1:] - a.preemphasis * y[:-1]])
+    y = np.pad(y, a.fft_size // 2, mode="reflect")
+    n = 1 + (len(y) - a.fft_size) // a.hop_size
+    idx = np.arange(a.fft_size)[None] + a.hop_size * np.arange(n)[:, None]
+    win = hann_window(a.win_size, a.fft_size).astype(np.float64)
+    mag = np.abs(np.fft.rfft(y[idx] * win, axis=-1)).T
+    m = a.max_abs_value
+
+    def chain(x):
+        db = 20 * np.log10(np.maximum(10 ** (a.min_level_db / 20), x))
+        db = db - a.ref_level_db
+        return np.clip(2 * m * (db - a.min_level_db) / -a.min_level_db - m,
+                       -m, m)
+    basis = mel_basis(a.sample_rate, a.fft_size, a.num_mels)
+    return chain(basis.astype(np.float64) @ mag), chain(mag)
+
+
+def run_cli(module: str, args: list, dev, timeout: float = CLI_TIMEOUT_S
+            ) -> tuple:
+    """``python -m PKG.<module> args`` from the repository; ``(rc, output,
+    seconds)``.  On the CPU (a rehearsal) the CLI is given ``--device
+    cpu``."""
+    extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.{module}", *args,
+                           *extra], cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    return (proc.returncode, proc.stdout + proc.stderr,
+            time.perf_counter() - t0)
+
+
+def require_rc0(name: str, rc: int, out: str) -> None:
+    if rc != 0:
+        raise AssertionError(f"{name} exited {rc}:\n{out[-6000:]}")
+
+
+def step_lines(log_text: str) -> list:
+    """``(step, sec_per_step, loss)`` of each ``Step`` line of a
+    train.log."""
+    rows = []
+    for line in log_text.splitlines():
+        if "]  Step " in line and "sec/step" in line:
+            body = line.split("]  Step ", 1)[1]
+            step = int(body.split("[")[0])
+            sec = float(body.split("[")[1].split(" sec/step")[0])
+            loss = float(body.split("loss=")[1].split(",")[0])
+            rows.append((step, sec, loss))
+    return rows
+
+
+def read_metrics(run: str) -> list:
+    with open(os.path.join(run, "metrics.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+def preprocess_phase(dev, smi, tmp) -> tuple:
+    """Preprocess the committed clips with the port's CLI into
+    ``tmp/data``, check the npz invariants and hold the card's npz files
+    against the CPU's.  Returns ``(the corpus dir, the numbers for the
+    data line)``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import (
+        preprocess_corpus)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav, rescale, trim_silence)
+
+    cpu = torch.device("cpu")
+    a = C.Config().audio
+    hop = a.hop_size
+    corpus_in = os.path.join(tmp, "moon")
+    data = os.path.join(tmp, "data")
+    with phase("data (a): the preprocess CLI on the card, 18 clips, 4 "
+               "workers; card vs CPU"):
+        os.makedirs(os.path.join(corpus_in, "audio"))
+        table = {}
+        for f in sorted(os.listdir(TRAIN_WAVS)):
+            shutil.copy(os.path.join(TRAIN_WAVS, f),
+                        os.path.join(corpus_in, "audio", f))
+            table[f"audio/{f}"] = TEXT0
+        with open(os.path.join(corpus_in, "moon-recognition-All.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(table, f, ensure_ascii=False)
+        rc, text, secs = run_cli("preprocess", [
+            "--name", "moon", "--in_dir", corpus_in, "--out_dir", data,
+            "--num_workers", "4"], dev)
+        require_rc0("preprocess", rc, text)
+        names = sorted(f for f in os.listdir(data) if f.endswith(".npz"))
+        keys = {"audio", "mel", "linear", "time_steps", "mel_frames", "text",
+                "tokens", "loss_coeff"}
+        for name in names:
+            with np.load(os.path.join(data, name)) as d:
+                if (set(d.files) != keys
+                        or len(d["audio"]) != int(d["mel_frames"]) * hop
+                        or d["mel"].shape != (int(d["mel_frames"]),
+                                              a.num_mels)
+                        or d["linear"].shape[1] != a.num_freq
+                        or d["tokens"][-1] != 1):
+                    raise AssertionError(f"{name}: npz invariants broken")
+        rows = rows_of(data)
+        if len(names) != 18 or len(rows) != 18:
+            raise AssertionError(f"{len(names)} npz, {len(rows)} rows")
+        log(f"  preprocess CLI: rc 0 in {secs:.2f} s wall (process start "
+            f"included); 18 npz with the 8 keys, len(audio) = frames x "
+            f"{hop}, EOS; train.txt 18 rows [{smi}]")
+
+        cpu_dir = os.path.join(tmp, "data_cpu")
+        preprocess_corpus(C.Config(), "moon", corpus_in, cpu_dir,
+                          num_workers=4, device=cpu)
+        if rows_of(cpu_dir) != rows:
+            raise AssertionError("train.txt rows differ card vs CPU")
+        worst = {"mel": 0.0, "lin": 0.0, "lin_cpu_f64": 0.0,
+                 "lin_card_f64": 0.0}
+        for clip_name in DATA_CMP_CLIPS:
+            name = clip_name[:-len(".wav")] + ".npz"
+            wav = trim_silence(rescale(load_wav(
+                os.path.join(TRAIN_WAVS, clip_name), a.sample_rate), a), a)
+            _, lin64 = features_f64(wav, a)
+            with np.load(os.path.join(data, name)) as g, \
+                    np.load(os.path.join(cpu_dir, name)) as c:
+                if not (np.array_equal(g["audio"], c["audio"])
+                        and np.array_equal(g["tokens"], c["tokens"])):
+                    raise AssertionError(f"{name}: audio or tokens differ")
+                errs = {"mel": float(np.abs(g["mel"] - c["mel"]).max()),
+                        "lin": float(np.abs(g["linear"] - c["linear"]).max()),
+                        "lin_cpu_f64": float(np.abs(c["linear"].T - lin64)
+                                             .max()),
+                        "lin_card_f64": float(np.abs(g["linear"].T - lin64)
+                                              .max())}
+            log(f"  {name}: mel |card - cpu| {errs['mel']:.3e}; linear "
+                f"{errs['lin']:.3e}, from float64: card "
+                f"{errs['lin_card_f64']:.3e}, CPU {errs['lin_cpu_f64']:.3e}")
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        if not (worst["mel"] <= DATA_MEL_TOL and worst["lin_card_f64"]
+                <= DATA_LIN_F64_RATIO * worst["lin_cpu_f64"]):
+            raise AssertionError(f"card vs CPU spectrograms: {worst}")
+    return data, {"wall_s": secs, "clips": len(names), "card_vs_cpu": worst}
+
+
+def data_phases(dev, smi, tmp, data: str, library_ms: float,
+                seeded_eval: float) -> dict:
+    """The data pipeline and the training CLI on the card, on the corpus
+    ``data``: the batcher's device store against its host path and the
+    prefetcher against the batcher; resume wn_moon through train_vocoder
+    (its mean logged loss below ``seeded_eval``, the seeded weights' eval
+    loss) and resume its run again; a seeded two-speaker run; serve the
+    run through the generate CLI (one kernel launch, counted); the
+    feeder's wait share in-process.  Returns the ``data`` line, with the
+    serving launches under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import (
+        DevicePrefetcher, WaveNetBatcher)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointManager)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask, batch_to_device)
+
+    cpu = torch.device("cpu")
+    cfg = C.load_config(WN_MOON)
+    if DATA_OVERRIDES:
+        cfg = C.overlay(cfg, wavenet=DATA_OVERRIDES)
+    size_args = [a for k, v in DATA_OVERRIDES.items()
+                 for a in (f"--{k}", str(v))]
+    a, hop = cfg.audio, cfg.audio.hop_size
+    out = {"card": smi}
+
+    with phase(f"data (b): WaveNetBatcher device store vs host path, "
+               f"{DATA_BATCHES} batches; DevicePrefetcher"):
+        seed = 7
+        host = WaveNetBatcher([data], cfg, seed=seed)
+        store = WaveNetBatcher([data], cfg, seed=seed, device_store=True,
+                               device=dev)
+        hit, sit = iter(host), iter(store)
+        mel_err = 0.0
+        for _ in range(DATA_BATCHES):
+            hb, sb = next(hit), next(sit)
+            if any(sb[k].device.type != dev.type for k in sb) or not all(
+                    np.array_equal(x, y) for x, y in zip(
+                        host.rng.get_state(), store.rng.get_state())):
+                raise AssertionError("the store's draws differ")
+            if not (np.array_equal(sb["input_wav"].cpu().numpy(),
+                                   hb.input_wav)
+                    and np.array_equal(sb["speaker_id"].cpu().numpy(),
+                                       hb.speaker_id)):
+                raise AssertionError("the store's crops differ")
+            lc = sb["local_condition"].cpu().numpy()
+            np.testing.assert_allclose(lc, hb.local_condition,
+                                       atol=DATA_F16_ATOL, rtol=DATA_F16_RTOL)
+            mel_err = max(mel_err, float(np.abs(lc - hb.local_condition)
+                                         .max()))
+        log(f"  {DATA_BATCHES} batches of {tuple(hb.input_wav.shape)}: the "
+            f"same draws (rng states equal), audio and speaker ids exact, "
+            f"mel within f16 (max {mel_err:.2e}); store_bytes "
+            f"{store.store_bytes:,}")
+        out["store_bytes"] = store.store_bytes
+
+        def refuse(batch):
+            raise AssertionError("a device-store batch went through put_fn")
+        feeder = DevicePrefetcher(store, put_fn=refuse, device=dev)
+        try:
+            for _ in range(2):
+                got = next(feeder)
+        finally:
+            feeder.stop()
+        if any(got[k].device.type != dev.type for k in got):
+            raise AssertionError("a device-store batch left the device")
+        del store, sit
+
+        want = iter(WaveNetBatcher([data], cfg, seed=seed))
+        feeder = DevicePrefetcher(WaveNetBatcher([data], cfg, seed=seed),
+                                  device=dev)
+        try:
+            for _ in range(DATA_BATCHES):
+                got, ref = next(feeder), batch_to_device(next(want), cpu)
+                if any(got[k].device.type != dev.type or not torch.equal(
+                        got[k].cpu(), ref[k]) for k in ref):
+                    raise AssertionError("the prefetcher's batch differs")
+            pinned = feeder.pinned_batches
+        finally:
+            feeder.stop()
+        if dev.type == "cuda" and pinned < DATA_BATCHES:
+            raise AssertionError(f"{pinned} batches from pinned memory")
+        log(f"  prefetcher: {DATA_BATCHES} batches equal to the batcher's, "
+            f"in order, on {dev}; {pinned} copied from pinned memory; "
+            "device-store batches pass through")
+        out["prefetcher_pinned_batches"] = pinned
+
+    run = os.path.join(tmp, "run")
+    with phase(f"data (c): resume wn_moon through the train_vocoder CLI, "
+               f"{DATA_START} -> {DATA_RESUME_TO} -> {DATA_RESUME_MORE}"):
+        rc, text, secs = run_cli("train_vocoder", [
+            "--data_dir", data, "--log_dir", run, "--load_path", WN_MOON,
+            "--num_steps", str(DATA_RESUME_TO), "--hparams", DATA_HPARAMS,
+            *size_args], dev)
+        require_rc0("train_vocoder (resume wn_moon)", rc, text)
+        with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+            log_text = f.read()
+        lines = step_lines(log_text)
+        summaries = read_metrics(run)
+        losses = [r["loss"] for r in summaries if "loss" in r]
+        tests = [r["test_loss"] for r in summaries if "test_loss" in r]
+        lr = [r["learning_rate"] for r in summaries if "learning_rate" in r]
+        last = [r["step"] for r in summaries if "learning_rate" in r][-1]
+        w = cfg.wavenet
+        want_lr = w.learning_rate * w.decay_rate ** ((last - 1)
+                                                     / w.decay_steps)
+        mean_loss = float(np.mean([x[2] for x in lines]))
+        log(f"  rc 0 in {secs:.1f} s wall; Step lines {lines}; metrics "
+            f"loss {losses}, test_loss {tests}; learning rate at step "
+            f"{last} {lr[-1]:.9g} (schedule {want_lr:.9g}); mean logged "
+            f"loss {mean_loss:.4f} (gate < seeded {seeded_eval:.4f}) [{smi}]")
+        if not (f"Resuming from step {DATA_START}" in log_text
+                and os.path.isdir(os.path.join(run, "ckpt",
+                                               str(DATA_RESUME_TO)))
+                and losses and tests
+                and np.isfinite(losses + tests).all()
+                and abs(lr[-1] - want_lr) <= 1e-7
+                and mean_loss < seeded_eval):
+            raise AssertionError(f"the resumed CLI run is wrong:\n"
+                                 f"{text[-4000:]}")
+        # The CLI's own ValueWindow at its last boundary, and the last
+        # interval alone (the first includes the warm-up step).
+        n = len(lines)
+        last_interval = lines[-1][1] * n - lines[-2][1] * (n - 1)
+        out["cli"] = {"wall_s": secs, "steps": DATA_RESUME_TO - DATA_START,
+                      "sec_per_step_window": lines[-1][1],
+                      "sec_per_step_last_interval": last_interval,
+                      "losses": losses, "test_losses": tests,
+                      "mean_logged_loss": mean_loss,
+                      "learning_rate": lr[-1]}
+
+        rc, text, secs2 = run_cli("train_vocoder", [
+            "--data_dir", data, "--log_dir", run, "--load_path", run,
+            "--num_steps", str(DATA_RESUME_MORE), "--hparams", DATA_HPARAMS,
+            *size_args], dev)
+        require_rc0("train_vocoder (resume the run)", rc, text)
+        with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+            log_text = f.read()
+        kept = CheckpointManager(run).all_steps()
+        log(f"  second call: rc 0 in {secs2:.1f} s wall; kept steps {kept} "
+            f"(max_checkpoints {cfg.train.max_checkpoints})")
+        if not (f"Resuming from step {DATA_RESUME_TO}" in log_text
+                and kept[-1] == DATA_RESUME_MORE
+                and len(kept) <= cfg.train.max_checkpoints):
+            raise AssertionError(f"the second resume is wrong:\n"
+                                 f"{text[-4000:]}")
+        out["cli"]["second_call_wall_s"] = secs2
+
+    with phase(f"data (d): seeded two-speaker run, {DATA_GC_STEPS} steps"):
+        dirs = []
+        for speaker, mine in (("moon", lambda f: not f.startswith("NB")),
+                              ("son", lambda f: f.startswith("NB"))):
+            d = os.path.join(tmp, f"data_{speaker}")
+            os.makedirs(d)
+            sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
+            for r in sel:
+                shutil.copy(os.path.join(data, r.split("|")[0]), d)
+            with open(os.path.join(d, "train.txt"), "w",
+                      encoding="utf-8") as f:
+                f.write("\n".join(sel) + "\n")
+            dirs.append(d)
+        gc_run = os.path.join(tmp, "gc_run")
+        rc, text, secs = run_cli("train_vocoder", [
+            "--data_dir", ",".join(dirs), "--log_dir", gc_run,
+            "--num_steps", str(DATA_GC_STEPS), "--hparams",
+            "train.sync_every=5,train.summary_interval=5,"
+            "train.test_interval=5", *size_args], dev)
+        require_rc0("train_vocoder (two speakers)", rc, text)
+        with open(os.path.join(gc_run, "train.log"), encoding="utf-8") as f:
+            gc_log = f.read()
+        gc_rows = read_metrics(gc_run)
+        gc_losses = [r.get("loss", r.get("test_loss")) for r in gc_rows]
+        num_speakers = C.load_config(gc_run).wavenet.num_speakers
+        log(f"  rc 0 in {secs:.1f} s wall; num_speakers {num_speakers}; "
+            f"metrics {gc_rows}")
+        if not ("gc=on" in gc_log and num_speakers == 2 and len(gc_rows) == 4
+                and np.isfinite(gc_losses).all()):
+            raise AssertionError(f"the two-speaker run is wrong:\n"
+                                 f"{text[-4000:]}")
+        out["two_speakers"] = {"wall_s": secs, "metrics": gc_rows}
+
+    with phase("data (e): the generate CLI serves the CLI's run, one "
+               "kernel launch"):
+        wav_path = os.path.join(tmp, "served.wav")
+        script = (
+            "import json, sys\n"
+            f"from {PKG} import generate\n"
+            f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
+            "generate.main(sys.argv[1:])\n"
+            "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
+        extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", script, "--load_path", run, "--mel",
+             DATA_SERVE_MEL, "--out", wav_path, *extra], cwd=REPO,
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        require_rc0("generate", proc.returncode, proc.stdout + proc.stderr)
+        launches = json.loads(proc.stdout.strip().splitlines()[-1])
+        frames = np.load(DATA_SERVE_MEL).shape[0]
+        wav = load_wav(wav_path, a.sample_rate)
+        log(f"  rc 0 in {secs:.1f} s wall; launches {launches}; wav "
+            f"{wav.shape[0]} samples ({frames} frames), peak "
+            f"{np.abs(wav).max():.3f}")
+        if (wav.shape != (frames * hop,) or not np.isfinite(wav).all()
+                or np.abs(wav).max() > 1):
+            raise AssertionError("the served wav is wrong")
+        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+            raise AssertionError(f"generate launched {launches}")
+        out["serve"] = {"wall_s": secs, "samples": int(wav.shape[0])}
+        out["launches"] = launches
+
+    with phase(f"data (f): the feeder's wait share, {DATA_FEED_STEPS} "
+               "steps, device store on and off"):
+        task = WaveNetTask(cfg, device=dev)
+        state = task.init_state(0)
+        feed = {}
+        for on in (True, False):
+            batcher = WaveNetBatcher([data], cfg, device_store=on,
+                                     device=dev)
+            feeder = DevicePrefetcher(batcher, device=dev)
+            try:
+                for _ in range(2):                          # warm-up
+                    state, m = task.train_step(state, next(feeder))
+                float(m["loss"])
+                wait = 0.0
+                t_all = time.perf_counter()
+                for i in range(DATA_FEED_STEPS):
+                    t0 = time.perf_counter()
+                    batch = next(feeder)
+                    wait += time.perf_counter() - t0
+                    state, m = task.train_step(state, batch)
+                    if (i + 1) % 10 == 0:                    # sync_every
+                        float(m["loss"])
+                wall = time.perf_counter() - t_all
+            finally:
+                feeder.stop()
+            name = "store" if on else "host"
+            feed[name] = {"wait_share": wait / wall, "wait_s": wait,
+                          "sec_per_step": wall / DATA_FEED_STEPS}
+            log(f"  {name}: waited {wait * 1e3:.2f} ms of {wall:.3f} s "
+                f"({wait / wall:.2%}); {wall / DATA_FEED_STEPS * 1e3:.1f} ms "
+                f"per step [{smi}]")
+        out["feeder"] = feed
+        out["library_step_ms"] = library_ms
+        log(f"  the CLI's sec/step {out['cli']['sec_per_step_window']:.4f} "
+            f"(last interval {out['cli']['sec_per_step_last_interval']:.4f})"
+            f" beside the library step {library_ms:.1f} ms [{smi}]")
+        del task, state
+    return out
+
+
+def rows_of(data: str) -> list:
+    with open(os.path.join(data, "train.txt"), encoding="utf-8") as f:
+        return f.read().splitlines()
 
 
 def tts_phases(dev, smi, tmp) -> dict:
@@ -1768,9 +2183,15 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        train = training_phases(dev, smi, tmp)
+        corpus, preprocess = preprocess_phase(dev, smi, tmp)
+        train = training_phases(dev, smi, tmp, corpus)
+        data = data_phases(dev, smi, tmp, corpus,
+                           train["step_time"]["float32"]["ms_median"],
+                           train["seeded_eval_loss"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    data["preprocess"] = preprocess
+    cli_launches = data.pop("launches")
 
     kernels = []
     for v, t in timing.items():
@@ -1800,6 +2221,8 @@ def main() -> int:
             entry["class_agreement"] = agreement[v]
         if v in train["serve"]["launches"]:
             entry["launches_train_serve"] = train["serve"]["launches"][v]
+        if v in cli_launches:
+            entry["launches_train_cli"] = cli_launches[v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -1810,6 +2233,7 @@ def main() -> int:
     print(json.dumps({"trained": trained}))
     print(json.dumps({"tts": dict(tts, card=smi)}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

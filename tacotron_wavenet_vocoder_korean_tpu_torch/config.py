@@ -26,12 +26,11 @@ from typing import Any, Dict, List, Tuple
 
 @dataclass(frozen=True)
 class AudioConfig:
-    """The audio parameters serving, the mel analysis and Griffin-Lim read
-    (sample rate, hop, window, mel and linear widths, pre-emphasis, the dB
-    and normalisation chain, Griffin-Lim's iterations and power).  The
-    rescaling, trimming and clipping fields are carried for the
-    preprocessing (``extract_features``, the corpus builders), which the
-    port does not have yet."""
+    """The audio parameters: sample rate, hop, window, mel and linear
+    widths, pre-emphasis, the dB and normalisation chain (read by serving,
+    the mel analysis, Griffin-Lim and ``extract_features``), the rescaling,
+    trimming and length-clipping fields (read by the corpus builders,
+    ``data/corpus.py``), and Griffin-Lim's iterations and power."""
 
     sample_rate: int = 24000
     hop_size: int = 300
@@ -65,6 +64,10 @@ class AudioConfig:
     @property
     def num_freq(self) -> int:
         return self.fft_size // 2 + 1
+
+    @property
+    def frame_shift_ms(self) -> float:
+        return self.hop_size * 1000.0 / self.sample_rate
 
 
 @dataclass(frozen=True)
@@ -176,7 +179,7 @@ class WaveNetConfig:
     upsample_factor: Tuple[int, ...] = (5, 5, 12)
 
     sample_size: int = 15000          # samples per training crop
-    silence_threshold: int = 0        # read by the data pipeline (to port)
+    silence_threshold: int = 0        # mulaw-quantize's silence crop
     l2_regularization_strength: float = 0.0
 
     # Weight normalization on every stack weight: the training tree holds
@@ -212,14 +215,16 @@ class WaveNetConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Run-level training knobs, the JAX ``TrainConfig``'s fields and
-    defaults, carried for the port's training loop (``train_vocoder.py``'s
-    counterpart, which waits for the data pipeline).
+    defaults, read by ``train_vocoder.py`` and its batchers.
 
-    ``device_resident_data``, ``transfer_dtype`` and ``sync_every`` will be
-    read by that loop and its batcher; ``max_host_rss_gb`` and
-    ``restart_slowdown_ratio`` drive the JAX trainer's RSS and slowdown
-    watchdogs, which answer a leak of the TPU client and are not ported:
-    the port round-trips them and reads neither."""
+    ``best_eval_batches``, ``skip_path_filter``,
+    ``loss_explosion_threshold`` and ``transfer_dtype`` are read by the
+    Tacotron trainer and its batcher, which the port does not have yet;
+    ``checkpoint_interval`` by the Tacotron trainer alone (the WaveNet
+    trainer saves every 1,000 steps, as in JAX).  ``max_host_rss_gb``
+    and ``restart_slowdown_ratio`` drive the JAX trainer's RSS and
+    slowdown watchdogs, which answer a leak of the TPU client and are not
+    ported: the port round-trips them and reads neither."""
 
     random_seed: int = 123
     checkpoint_interval: int = 2000

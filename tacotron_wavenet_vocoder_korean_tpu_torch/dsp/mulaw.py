@@ -27,3 +27,22 @@ def mulaw_quantize(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
 def inv_mulaw_quantize(y: torch.Tensor, mu: int = 256) -> torch.Tensor:
     m = mu - 1
     return inv_mulaw(2 * y.to(torch.float32) / m - 1, m)
+
+
+def mulaw_encode(audio: torch.Tensor, quantization_channels: int = 256
+                 ) -> torch.Tensor:
+    """Float audio, clipped to [-1, 1] -> ids in [0, qc - 1], rounded."""
+    mu = float(quantization_channels - 1)
+    safe = torch.clamp(audio, -1.0, 1.0)
+    magnitude = torch.log1p(mu * torch.abs(safe)) / math.log1p(mu)
+    signal = torch.sign(safe) * magnitude
+    return ((signal + 1) / 2 * mu + 0.5).to(torch.int32)
+
+
+def mulaw_decode(ids: torch.Tensor, quantization_channels: int = 256
+                 ) -> torch.Tensor:
+    """Ids -> float audio in [-1, 1]."""
+    mu = float(quantization_channels - 1)
+    signal = 2.0 * (ids.to(torch.float32) / mu) - 1.0
+    magnitude = (1.0 / mu) * ((1.0 + mu) ** torch.abs(signal) - 1.0)
+    return torch.sign(signal) * magnitude

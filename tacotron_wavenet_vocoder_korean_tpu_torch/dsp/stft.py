@@ -8,18 +8,20 @@ of ``win_size`` centred in ``fft_size``, ``center=True`` reflect padding,
 the Slaney mel filterbank (fmin 0, fmax sr/2), amplitude to dB with a
 ``min_level_db`` floor, the ``ref_level_db`` shift and the symmetric
 [-max_abs_value, max_abs_value] normalisation.  Computed in the input's
-floating type (float32 as the JAX functions compute).  The preprocessing
-entry point ``extract_features`` is not ported.
+floating type (float32 as the JAX functions compute).
+``extract_features`` is the preprocessing entry point: both spectrograms
+of a wav from one STFT.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import AudioConfig
+from ..device import no_tf32, resolve_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -207,6 +209,30 @@ def linear_spectrogram(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """wav [T] -> normalized linear spectrogram [num_freq, frames]."""
     D = stft(preemphasis(wav, cfg.preemphasis, cfg.preemphasize), cfg)
     return normalize(amp_to_db(D.abs(), cfg) - cfg.ref_level_db, cfg)
+
+
+def extract_features(wav: np.ndarray, cfg: AudioConfig,
+                     device: Union[str, torch.device, None] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """wav -> (mel [num_mels, frames], linear [num_freq, frames]) as
+    float32 numpy, computed on ``device`` (``cuda`` unless the caller asks
+    for another) from one STFT: pre-emphasis, the reflect pad, ``rfft``
+    and one magnitude shared by both, each then through the dB, reference
+    level and normalisation chain.  The same numbers as
+    ``mel_spectrogram`` and ``linear_spectrogram``.  The JAX function
+    zero-extends the signal to a 128-frame bucket for XLA's compile cache;
+    no frame it keeps reads the extension, and nothing here compiles per
+    shape, so the port does not pad."""
+    dev = resolve_device(device)
+    y = torch.from_numpy(np.asarray(wav, dtype=np.float32)).to(dev)
+    with no_tf32():
+        mag = stft(preemphasis(y, cfg.preemphasis, cfg.preemphasize),
+                   cfg).abs()
+        basis = torch.from_numpy(mel_basis(cfg.sample_rate, cfg.fft_size,
+                                           cfg.num_mels)).to(dev)
+        mel = normalize(amp_to_db(basis @ mag, cfg) - cfg.ref_level_db, cfg)
+        lin = normalize(amp_to_db(mag, cfg) - cfg.ref_level_db, cfg)
+    return mel.cpu().numpy(), lin.cpu().numpy()
 
 
 @functools.lru_cache(maxsize=8)

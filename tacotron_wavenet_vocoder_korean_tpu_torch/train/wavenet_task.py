@@ -134,13 +134,16 @@ class WaveNetTask:
             return self.loss_fn(state.ema_params, batch)[1]
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device
+def batch_to_device(batch: Any, device: torch.device
                     ) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays as tensors on ``device``: audio and mel as
-    float32, speaker ids as int64."""
-    out = {k: torch.as_tensor(batch[k], dtype=torch.float32).to(device)
+    """A batch of numpy arrays (a dict, or the batcher's ``WaveNetBatch``)
+    as tensors on ``device``: audio and mel as float32, speaker ids, when
+    the batch has them, as int64."""
+    get = (batch.get if isinstance(batch, dict)
+           else lambda k: getattr(batch, k, None))
+    out = {k: torch.as_tensor(get(k), dtype=torch.float32).to(device)
            for k in ("input_wav", "local_condition")}
-    if batch.get("speaker_id") is not None:
-        out["speaker_id"] = torch.as_tensor(batch["speaker_id"]).long().to(
+    if get("speaker_id") is not None:
+        out["speaker_id"] = torch.as_tensor(get("speaker_id")).long().to(
             device)
     return out

@@ -1,0 +1,64 @@
+"""Timestamped logging to stdout and a run's log file, and a moving
+average (counterpart of the JAX package's ``utils/infolog.py``, without
+its Slack mirror: the port sends nothing over the network)."""
+from __future__ import annotations
+
+import atexit
+from datetime import datetime
+
+_format = "%Y-%m-%d %H:%M:%S.%f"
+_file = None
+
+
+def init(filename: str) -> None:
+    """Append this run's log to ``filename`` (the JAX function's run name
+    and Slack URL serve its Slack mirror alone)."""
+    global _file
+    close()
+    _file = open(filename, "a", encoding="utf-8")
+    _file.write("\n-----------------------------------------------------------------\n")
+    _file.write("Starting new training run\n")
+    _file.write("-----------------------------------------------------------------\n")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+    if _file is not None:
+        _file.write(f"[{datetime.now().strftime(_format)[:-3]}]  {msg}\n")
+        _file.flush()
+
+
+def close() -> None:
+    global _file
+    if _file is not None:
+        _file.close()
+        _file = None
+
+
+atexit.register(close)
+
+
+class ValueWindow:
+    """Moving average over the last ``window_size`` values."""
+
+    def __init__(self, window_size: int = 100):
+        self._window_size = window_size
+        self._values = []
+
+    def append(self, x: float) -> None:
+        self._values = self._values[-(self._window_size - 1):] + [float(x)]
+
+    @property
+    def sum(self) -> float:
+        return sum(self._values)
+
+    @property
+    def count(self) -> int:
+        return len(self._values)
+
+    @property
+    def average(self) -> float:
+        return self.sum / max(1, self.count)
+
+    def reset(self) -> None:
+        self._values = []
