@@ -51,10 +51,22 @@ the prefetcher, ``wn_moon`` resumed through the ``train_vocoder`` CLI for
 run served through the ``generate`` CLI (one kernel launch), and the
 feeder's wait share with the store on and off.
 
+Then Tacotron training on that corpus, split into two speaker dirs, at
+``both_r2``'s config: ``both_r2`` resumed at step 106,000 through the
+``train_tacotron`` CLI for 20 steps (the learning rate held to the Noam
+schedule, the loss below seeded weights'), then side by side its run
+resumed for 10 more, a seeded single-speaker run, and the run served
+through the ``tts`` CLI with the trained vocoder (one kernel launch);
+the batcher's device store against its host path; one f32 step of the
+trained state the CLI left (weights, batch statistics, Adam) on the card
+against the CPU with the same dropout masks; the step's time, kernels,
+busy share and peak memory at B = 32 with 1,000 target frames (200
+decoder steps) and with the corpus's 250, f32 and bf16.
+
 Wavs, run dirs and unpacked checkpoints go to temporary directories that
-are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train`` and a
-``data`` JSON line carry those phases' numbers; the last line is ``{"ok": true,
-"device": {...}}``.
+are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
+``data`` and a ``taco_train`` JSON line carry those phases' numbers; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -153,7 +165,7 @@ TACO_F32_TOL = 1e-4
 # noise: mean |card - CPU| at most this many times the CPU's mean
 # |bf16 - f32| (as tests/test_torch_tacotron.py holds the port to JAX).
 TACO_BF16_RATIO = 2.0
-TACO_REPS = 5            # timed repetitions of each decode, after a warm-up
+TACO_REPS = 5          # timed repetitions of each decode, after a warm-up
 ALIGN_SUM_TOL = 1e-3     # a column of monotonic attention sums to <= 1
 # Griffin-Lim card vs CPU, the same initial phase: cuFFT and the CPU's FFT
 # round differently, 60 iterations carry it and the inverse pre-emphasis
@@ -217,6 +229,39 @@ DATA_GC_STEPS = 10
 DATA_FEED_STEPS = 20
 DATA_OVERRIDES: dict = {}
 DATA_SERVE_MEL = E2E_MEL
+# Tacotron training on the corpus above, split into two speaker dirs (10
+# 003.* / 006.* clips -> speaker 0, 8 NB* clips -> speaker 1; 40-240 frames,
+# text 0), at both_r2's config (B = 32, bf16, deepvoice, 2 speakers).
+# (a) one f32 step of the trained state the CLI of (c) leaves (both_r2's
+# weights, batch_stats and Adam state, 30 steps on), card vs CPU, B = 4,
+# the same dropout masks.  Bounds from measurement (on an NVIDIA H100
+# 80GB HBM3 at 700 W: loss 2.3e-7 relative, params 5.2e-7 and batch_stats
+# 1.6e-7 of each leaf's largest |value|; the update alone is not bounded:
+# where Adam's nu is small it turns gradient rounding into 0.05% of the
+# update).
+TACO_CMP_B = 4
+TACO_LOSS_TOL, TACO_PARAM_TOL, TACO_STATS_TOL = 1e-5, 5e-5, 1e-5
+# and the gradient of seeded weights (B = 2, dropout off), card vs CPU in
+# the L2 norm, as tests/test_torch_cuda.py holds it.
+TACO_GRAD_TOL = 1e-5
+# (b) the step's time at full width: B = 32, T_in = 96, T_out = 1,000 (200
+# decoder steps: JAX's filter admits up to r * max_iters - r = 995 frames,
+# bucketed to 1,000), and at the corpus's B = 32 x 250 frames; kernels and
+# device time counted at the first shape.
+TACO_TIMING_SHAPES = ((32, 96, 1000), (32, 48, 250))
+TACO_TRAIN_REPS = 5               # timed steps, after a warm-up
+# (c) both_r2 resumed through the train_tacotron CLI over two calls.
+TACO_START, TACO_RESUME_TO, TACO_RESUME_MORE = 106000, 106020, 106030
+TACO_HPARAMS = ("train.sync_every=10,train.summary_interval=10,"
+                "train.test_interval=10,train.best_eval_batches=1")
+TACO_WARMUP = 4000.0              # the schedule of a --load_path resume
+TACO_LR_TOL = 1e-9
+# A CPU rehearsal's smaller size: tacotron overrides in-process, and the
+# CLI flags that give them to the subprocesses.
+TACO_OVERRIDES: dict = {}
+TACO_CLI_ARGS: list = []
+TACO_STORE_BATCHES = 32           # (d): one group of 32 batches
+TACO_SEEDED_STEPS = 10            # (e)
 
 
 def log(msg: str) -> None:
@@ -331,19 +376,24 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_count(fn) -> tuple:
+def kernel_count(fn, host: bool = True) -> tuple:
     """(CUDA kernels, kernel launch calls, device time in us) of ``fn``,
-    counted by torch.profiler; no kernels when it sees no device."""
+    counted by torch.profiler; no kernels when it sees no device.  With
+    ``host=False`` it traces the device alone and counts no launch calls
+    (None): a step of ~10^5 kernels takes minutes to trace with the
+    host's ops too."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     launch_calls = sum(e.count for e in events if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    return (sum(e.count for e in kernels), launch_calls,
+    return (sum(e.count for e in kernels), launch_calls if host else None,
             sum(getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) for e in kernels))
 
@@ -1645,6 +1695,444 @@ def rows_of(data: str) -> list:
         return f.read().splitlines()
 
 
+def map_tensors(node, fn):
+    """``fn`` on every tensor of a tree of dicts, tuples and named
+    tuples."""
+    if isinstance(node, torch.Tensor):
+        return fn(node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(map_tensors(v, fn) for v in node))
+    if isinstance(node, tuple):
+        return tuple(map_tensors(v, fn) for v in node)
+    if isinstance(node, dict):
+        return {k: map_tensors(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [map_tensors(v, fn) for v in node]
+    return node
+
+
+def noam(step: int, cfg) -> float:
+    """The Noam learning rate the step that makes ``step`` reads (at
+    state.step = step - 1), in float64."""
+    s = float(step)
+    return (cfg.initial_learning_rate * TACO_WARMUP ** 0.5
+            * min(s * TACO_WARMUP ** -1.5, s ** -0.5))
+
+
+def run_side_by_side(cmds: dict, dev, tmp: str) -> dict:
+    """``python <args>`` for each name's args, all started at once from
+    the repository, their output into files under ``tmp``; returns
+    ``{name: (output, seconds to its own exit)}`` and raises unless each
+    exited 0.  On the CPU (a rehearsal) each is given ``--device cpu``."""
+    extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+    procs = {}
+    for name, args in cmds.items():
+        path = os.path.join(tmp, f"{name}.out")
+        with open(path, "w", encoding="utf-8") as f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, *args, *extra], cwd=REPO, stdout=f,
+                stderr=subprocess.STDOUT), path, time.perf_counter())
+    done = {}
+    deadline = time.perf_counter() + CLI_TIMEOUT_S
+    try:
+        while len(done) < len(procs):
+            for name, (proc, path, t0) in procs.items():
+                if name not in done and proc.poll() is not None:
+                    with open(path, encoding="utf-8") as f:
+                        done[name] = (f.read(), time.perf_counter() - t0)
+                    require_rc0(name, proc.returncode, done[name][0])
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"still running: "
+                                   f"{sorted(set(procs) - set(done))}")
+            time.sleep(0.1)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def taco_train_phases(dev, smi, tmp, data: str) -> dict:
+    """Tacotron training on the card: (c) both_r2 resumed through the
+    train_tacotron CLI, its loss against seeded weights'; then, side by
+    side (their walls alone are reported), the run resumed again, (e) a
+    seeded single-speaker run and (f) the run of (c) served through the
+    tts CLI (one kernel launch, counted); (d) the batcher's store against
+    its host path; (a) one f32 step of the trained state the CLI left,
+    card against CPU; (b) the step's time at full width.  Returns the
+    ``taco_train`` line, with the serving launches under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        from_jax_tree)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import (
+        TacotronBatcher)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.text import TextCodec
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        CheckpointReader)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device)
+
+    cpu = torch.device("cpu")
+    cfg = C.overlay(C.load_config(BOTH_R2), tacotron=TACO_OVERRIDES)
+    cfg32 = dataclasses.replace(cfg, tacotron=dataclasses.replace(
+        cfg.tacotron, compute_dtype="float32"))
+    vocab = TextCodec(cfg.tacotron.cleaners).vocab_size
+    out = {"card": smi}
+
+    dirs = []
+    for i, mine in enumerate((lambda f: not f.startswith("NB"),
+                              lambda f: f.startswith("NB"))):
+        d = os.path.join(tmp, f"taco_speaker{i}")
+        os.makedirs(d)
+        sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
+        for r in sel:
+            shutil.copy(os.path.join(data, r.split("|")[0]), d)
+        with open(os.path.join(d, "train.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(sel) + "\n")
+        dirs.append(d)
+    paths = ",".join(dirs)
+    corpus_batch = batch_to_device(next(iter(TacotronBatcher(dirs, cfg))),
+                                   dev, cfg.train.transfer_dtype)
+
+    def corpus_loss(task, st) -> float:
+        """The training-mode loss of ``st`` on the corpus's first batch,
+        dropout from a fixed seed."""
+        with torch.no_grad():
+            draws = task.draw(corpus_batch,
+                              torch.Generator(dev).manual_seed(0), st.step)
+            return float(task.loss_fn(st.params, st.batch_stats,
+                                      corpus_batch, draws)[0])
+
+    with phase("taco_train: seeded weights' loss on a corpus batch"):
+        task = TacotronTask(cfg, vocab, True, dev)
+        out["seeded_loss"] = corpus_loss(task, task.init_state(0))
+        log(f"  B={tuple(corpus_batch['inputs'].shape)[0]} T_out="
+            f"{tuple(corpus_batch['mel_targets'].shape)[1]}: seeded loss "
+            f"{out['seeded_loss']:.4f}")
+
+    run = os.path.join(tmp, "taco_run")
+    with phase(f"taco_train (c): resume both_r2 through the train_tacotron "
+               f"CLI, {TACO_START} -> {TACO_RESUME_TO}"):
+        rc, text, secs = run_cli("train_tacotron", [
+            "--data_paths", paths, "--log_dir", run, "--load_path", BOTH_R2,
+            "--num_steps", str(TACO_RESUME_TO), "--hparams", TACO_HPARAMS,
+            *TACO_CLI_ARGS], dev)
+        require_rc0("train_tacotron (resume both_r2)", rc, text)
+        with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+            log_text = f.read()
+        lines = step_lines(log_text)
+        rows = read_metrics(run)
+        losses = [r["loss"] for r in rows if "loss" in r]
+        tests = [r["test_loss"] for r in rows if "test_loss" in r]
+        lr = {r["step"]: r["learning_rate"] for r in rows
+              if "learning_rate" in r}
+        lr_err = max(abs(v - noam(k, cfg.tacotron)) for k, v in lr.items())
+        mean_loss = float(np.mean([x[2] for x in lines]))
+        files = [f"step-{TACO_START + 10}-audio.wav",
+                 f"step-{TACO_START + 10}-align.png",
+                 os.path.join("best", "best.json")]
+        log(f"  rc 0 in {secs:.1f} s wall; Step lines {lines}; losses "
+            f"{losses}, test losses {tests}; learning rate {lr} (Noam, "
+            f"warmup {TACO_WARMUP:.0f}: max error {lr_err:.3g}, bound "
+            f"{TACO_LR_TOL:g}); mean logged loss {mean_loss:.4f} (gate < "
+            f"seeded {out['seeded_loss']:.4f}) [{smi}]")
+        if not (f"Resuming from step {TACO_START}" in log_text
+                and len(lr) == 2 and lr_err <= TACO_LR_TOL
+                and losses and tests and np.isfinite(losses + tests).all()
+                and mean_loss < out["seeded_loss"]
+                and all(os.path.exists(os.path.join(run, f))
+                        for f in files)):
+            raise AssertionError(f"the resumed CLI run is wrong:\n"
+                                 f"{text[-4000:]}")
+        n = len(lines)
+        out["cli"] = {"wall_s": secs, "steps": TACO_RESUME_TO - TACO_START,
+                      "sec_per_step_window": lines[-1][1],
+                      "sec_per_step_last_interval":
+                          lines[-1][1] * n - lines[-2][1] * (n - 1),
+                      "losses": losses, "test_losses": tests,
+                      "mean_logged_loss": mean_loss,
+                      "learning_rate_max_err": lr_err}
+
+    with phase(f"taco_train (c), (e) and (f), side by side: the run of "
+               f"(c) resumed to {TACO_RESUME_MORE}; a seeded single-speaker "
+               f"run, {TACO_SEEDED_STEPS} steps; the tts CLI serves the run "
+               f"of (c) with trained wn_moon, one kernel launch"):
+        single = os.path.join(tmp, "taco_single")
+        served = os.path.join(tmp, "taco_served")
+        # (f) serves the run as (c)'s first call left it, copied, while the
+        # second call writes on in the original.
+        run_first = os.path.join(tmp, f"taco_run_{TACO_RESUME_TO}")
+        shutil.copytree(run, run_first, ignore=shutil.ignore_patterns("best"))
+        script = (
+            "import json, sys\n"
+            f"from {PKG} import tts\n"
+            f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
+            "tts.main(sys.argv[1:])\n"
+            "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
+        done = run_side_by_side({
+            "train_tacotron (resume the run)": [
+                "-m", f"{PKG}.train_tacotron", "--data_paths", paths,
+                "--log_dir", run, "--load_path", run, "--num_steps",
+                str(TACO_RESUME_MORE), "--hparams", TACO_HPARAMS,
+                *TACO_CLI_ARGS],
+            "train_tacotron (single speaker)": [
+                "-m", f"{PKG}.train_tacotron", "--data_paths", dirs[0],
+                "--log_dir", single, "--model_type", "single",
+                "--skip_path_filter", "--num_steps", str(TACO_SEEDED_STEPS),
+                "--hparams", "train.sync_every=5,train.summary_interval=5,"
+                "train.test_interval=5,train.best_eval_batches=1",
+                *TACO_CLI_ARGS],
+            "tts": ["-c", script, "--tacotron", run_first, "--wavenet",
+                    WN_MOON, "--text", TEXT0, "--speaker_id", "0",
+                    "--out_dir", served]}, dev, tmp)
+        text, secs2 = done["train_tacotron (resume the run)"]
+        with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+            log_text = f.read()
+        more = [x for x in step_lines(log_text) if x[0] > TACO_RESUME_TO]
+        log(f"  (c) second call: rc 0 in {secs2:.1f} s wall; Step lines "
+            f"{more}")
+        if not (f"Resuming from step {TACO_RESUME_TO}" in log_text
+                and [x[0] for x in more] == [TACO_RESUME_MORE]
+                and os.path.isdir(os.path.join(run, "ckpt",
+                                               str(TACO_RESUME_MORE)))):
+            raise AssertionError(f"the second resume is wrong:\n"
+                                 f"{text[-4000:]}")
+        out["cli"]["second_call_wall_s"] = secs2
+
+        text, secs = done["train_tacotron (single speaker)"]
+        rows = read_metrics(single)
+        s_cfg = C.load_config(single)
+        vals = [r.get("loss", r.get("test_loss")) for r in rows]
+        vals = [v for v in vals if v is not None]
+        log(f"  (e) rc 0 in {secs:.1f} s wall; num_speakers "
+            f"{s_cfg.tacotron.num_speakers}, model_type "
+            f"{s_cfg.tacotron.model_type}, fused_rnn "
+            f"{s_cfg.tacotron.fused_rnn}; losses {vals}")
+        if not (s_cfg.tacotron.num_speakers == 1 and vals
+                and np.isfinite(vals).all() and os.path.isdir(os.path.join(
+                    single, "ckpt", str(TACO_SEEDED_STEPS)))):
+            raise AssertionError(f"the single-speaker run is wrong:\n"
+                                 f"{text[-4000:]}")
+        out["single_speaker"] = {"wall_s": secs, "losses": vals}
+
+        text, secs = done["tts"]
+        launches = json.loads([ln for ln in text.splitlines()
+                               if ln.startswith("{")][-1])
+        mel = np.load(os.path.join(served, "0.mel.npy"))
+        wav = load_wav(os.path.join(served, "0.wavenet.wav"),
+                       cfg.audio.sample_rate)
+        log(f"  (f) rc 0 in {secs:.1f} s wall; launches {launches}; mel "
+            f"{mel.shape}, wav {wav.shape[0]} samples, peak "
+            f"{np.abs(wav).max():.3f}")
+        if not (np.isfinite(mel).all() and mel.ndim == 2 and len(wav)
+                and np.isfinite(wav).all() and np.abs(wav).max() <= 1):
+            raise AssertionError("the served mel or wav is wrong")
+        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+            raise AssertionError(f"tts launched {launches}")
+        out["serve"] = {"wall_s": secs, "mel_frames": int(mel.shape[0])}
+        out["launches"] = launches
+
+    with phase(f"taco_train (d): TacotronBatcher device store vs host "
+               f"path, {TACO_STORE_BATCHES} batches"):
+        host = iter(TacotronBatcher(dirs, cfg))
+        st = TacotronBatcher(dirs, cfg, device_store=True, device=dev)
+        store = iter(st)
+        walls = {"host": [], "store": []}
+        for _ in range(TACO_STORE_BATCHES):
+            t0 = time.perf_counter()
+            h = next(host)
+            walls["host"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            s_b = next(store)
+            torch.cuda.synchronize()
+            walls["store"].append(time.perf_counter() - t0)
+            h = batch_to_device(h, dev, cfg.train.transfer_dtype)
+            for k in h:
+                if not (h[k].dtype == s_b[k].dtype and h[k].shape ==
+                        s_b[k].shape and torch.equal(h[k], s_b[k])):
+                    raise AssertionError(f"store batch differs in {k}")
+        # A group's examples are read at its first batch: the mean over
+        # the group is the cost per batch.
+        ms = {k: 1e3 * float(np.mean(v)) for k, v in walls.items()}
+        first = {k: 1e3 * v[0] for k, v in walls.items()}
+        log(f"  {TACO_STORE_BATCHES} batches (one group) equal draw for "
+            f"draw; next(), mean over the group: host {ms['host']:.2f} ms, "
+            f"store {ms['store']:.2f} ms (x{ms['host'] / ms['store']:.1f}); "
+            f"the group's first: host {first['host']:.1f} ms, store "
+            f"{first['store']:.1f} ms; store_bytes {st.store_bytes:,} "
+            f"[{smi}]")
+        out["store"] = {"next_ms_host": ms["host"],
+                        "next_ms_store": ms["store"],
+                        "first_next_ms_host": first["host"],
+                        "first_next_ms_store": first["store"],
+                        "store_bytes": st.store_bytes}
+        del st, store
+
+    with phase(f"taco_train (a): the trained state the CLI left, one f32 "
+               f"step, card vs CPU, B={TACO_CMP_B}, the same dropout "
+               f"masks"):
+        t0 = time.perf_counter()
+        with CheckpointReader(run) as reader:
+            tree = reader.restore(items=None)
+        read_s = time.perf_counter() - t0
+        tasks = {d.type: TacotronTask(cfg32, vocab, True, d)
+                 for d in (dev, cpu)}
+        template = tasks["cpu"].init_state(0)
+        trained = from_jax_tree(template, tasks["cpu"].from_jax_tree(
+            template, tree))
+        del tree
+        log(f"  the run's train state (step {int(trained.step)}, "
+            f"{sum(v.numel() for v in trained.params.values()):,} params, "
+            f"batch_stats, Adam) read in {read_s:.2f} s")
+        cmp_cfg = C.overlay(cfg, tacotron={"batch_size": TACO_CMP_B})
+        batch = next(iter(TacotronBatcher(dirs, cmp_cfg)))
+        b_cpu = batch_to_device(batch, cpu, cfg.train.transfer_dtype)
+        draws = tasks["cpu"].draw(b_cpu, torch.Generator().manual_seed(0),
+                                  trained.step)
+        res = {}
+        for d in (dev, cpu):
+            mv = lambda x, d=d: x.to(d)
+            res[d.type] = tasks[d.type].train_step(
+                map_tensors(trained, mv), map_tensors(b_cpu, mv),
+                map_tensors(draws, mv))
+        torch.cuda.synchronize()
+        (s_card, m_card), (s_cpu, m_cpu) = res[dev.type], res["cpu"]
+        errs = {
+            "loss_rel": abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+            / abs(float(m_cpu["loss"])),
+            "params": leaf_error(s_card.params, s_cpu.params),
+            "update": leaf_error(
+                {k: s_card.params[k] - trained.params[k].to(dev)
+                 for k in trained.params},
+                {k: s_cpu.params[k] - trained.params[k]
+                 for k in trained.params}),
+            "batch_stats": leaf_error(s_card.batch_stats, s_cpu.batch_stats),
+            "adam_mu": leaf_error(s_card.opt_state[1][0]["mu"],
+                                  s_cpu.opt_state[1][0]["mu"]),
+            "adam_nu": leaf_error(s_card.opt_state[1][0]["nu"],
+                                  s_cpu.opt_state[1][0]["nu"])}
+        log(f"  T_in={tuple(b_cpu['inputs'].shape)[1]} T_out="
+            f"{tuple(b_cpu['mel_targets'].shape)[1]}: loss card "
+            f"{float(m_card['loss']):.6f} CPU {float(m_cpu['loss']):.6f}; "
+            f"errors {errs} (bounds: loss {TACO_LOSS_TOL:g}, params "
+            f"{TACO_PARAM_TOL:g}, batch_stats {TACO_STATS_TOL:g}) [{smi}]")
+        if not (errs["loss_rel"] <= TACO_LOSS_TOL
+                and errs["params"] <= TACO_PARAM_TOL
+                and errs["batch_stats"] <= TACO_STATS_TOL
+                and np.isfinite(float(m_card["loss"]))):
+            raise AssertionError("the card's training step differs from "
+                                 "the CPU's")
+        out["card_vs_cpu"] = dict(errs, loss=float(m_card["loss"]),
+                                  step=int(trained.step))
+        # Why the task runs without cuDNN: the gradient at seeded weights
+        # on the card with cuDNN's convolutions and without, each against
+        # the CPU's (the same batch, dropout off).
+        from tacotron_wavenet_vocoder_korean_tpu_torch.device import no_tf32
+
+        class WithCudnn(TacotronTask):
+            def _precision(self):
+                return no_tf32()
+        cfg0 = dataclasses.replace(cfg32, tacotron=dataclasses.replace(
+            cfg32.tacotron, dropout_prob=0.0))
+        rng = np.random.RandomState(0)
+        syn = {"inputs": rng.randint(2, 70, (2, 16)),
+               "input_lengths": np.array([16, 11]),
+               "loss_coeff": np.ones(2, np.float32),
+               "mel_targets": rng.randn(2, 50, cfg.audio.num_mels),
+               "linear_targets": rng.randn(2, 50, cfg.audio.num_freq),
+               "speaker_id": np.array([0, 1])}
+        grads = {}
+        for name, cls, d in (("cpu", TacotronTask, cpu),
+                             ("card", TacotronTask, dev),
+                             ("card_cudnn", WithCudnn, dev)):
+            t = cls(cfg0, vocab, True, d)
+            st = t.init_state(0)
+            grads[name] = {k: v.double().cpu() for k, v in t.grads(
+                st.params, st.batch_stats,
+                batch_to_device(syn, d, cfg.train.transfer_dtype))[1]
+                .items()}
+        norm = sum(float((g ** 2).sum()) for g in grads["cpu"].values())
+        dist = {name: (sum(float(((grads[name][k] - g) ** 2).sum())
+                           for k, g in grads["cpu"].items()) / norm) ** 0.5
+                for name in ("card", "card_cudnn")}
+        log(f"  seeded gradient (B=2, T_out 50), card vs CPU in the L2 "
+            f"norm: the task's (no cuDNN) {dist['card']:.3e} (bound "
+            f"{TACO_GRAD_TOL:g}); with cuDNN's convolutions "
+            f"{dist['card_cudnn']:.3e} [{smi}]")
+        if not dist["card"] <= TACO_GRAD_TOL:
+            raise AssertionError("the card's gradient differs from the CPU's")
+        out["card_vs_cpu"]["seeded_grad_l2"] = dist["card"]
+        out["card_vs_cpu"]["seeded_grad_l2_with_cudnn"] = dist["card_cudnn"]
+        del grads
+        trained = map_tensors(trained, lambda x: x.to(dev))
+        out["trained_loss"] = corpus_loss(TacotronTask(cfg, vocab, True,
+                                                       dev), trained)
+        log(f"  its loss on the corpus batch of the seeded gate: "
+            f"{out['trained_loss']:.4f} (seeded {out['seeded_loss']:.4f})")
+        del res, s_card, s_cpu, tasks
+
+    with phase("taco_train (b): the step's time at full width (CUDA "
+               "events, after a warm-up)"):
+        timing = {}
+        for B, T_in, T_out in TACO_TIMING_SHAPES:
+            rng = np.random.RandomState(1)
+            syn = {"inputs": rng.randint(2, 70, (B, T_in)),
+                   "input_lengths": np.full(B, T_in),
+                   "loss_coeff": np.ones(B, np.float32),
+                   "mel_targets": rng.randn(B, T_out, cfg.audio.num_mels),
+                   "linear_targets": rng.randn(B, T_out, cfg.audio.num_freq),
+                   "speaker_id": np.arange(B) % 2}
+            b = batch_to_device(syn, dev, cfg.train.transfer_dtype)
+            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[0]
+            for name, c in (("float32", cfg32), ("bfloat16", cfg)):
+                task = TacotronTask(c, vocab, True, dev)
+                gen = torch.Generator(dev).manual_seed(0)
+                state, m = task.train_step(trained, b, generator=gen)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                holder = [state, m]
+
+                def step():
+                    holder[0], holder[1] = task.train_step(
+                        holder[0], b, generator=gen)
+                for _ in range(TACO_TRAIN_REPS):
+                    times.append(cuda_ms(step))
+                state, m = holder
+                peak = torch.cuda.max_memory_allocated()
+                times.sort()
+                med = times[len(times) // 2]
+                key = f"{name}_B{B}_T{T_out}"
+                timing[key] = {
+                    "ms_min": times[0], "ms_median": med, "ms_max": times[-1],
+                    "peak_mem_gb": peak / 1e9, "loss": float(m["loss"])}
+                counted = ""
+                if profiled:
+                    kernels, _, device_us = kernel_count(
+                        lambda: task.train_step(state, b, generator=gen),
+                        host=False)
+                    timing[key].update(
+                        kernels_per_step=kernels,
+                        device_ms_per_step=device_us / 1e3,
+                        busy_share=device_us / 1e3 / med)
+                    counted = (f"; {kernels} CUDA kernels, device busy "
+                               f"{device_us / 1e3:.1f} ms "
+                               f"({device_us / 1e3 / med:.1%})")
+                log(f"  {name} B={B} T_in={T_in} T_out={T_out}: "
+                    f"{times[0]:.1f} / {med:.1f} / {times[-1]:.1f} ms per "
+                    f"step (min / median / max of {TACO_TRAIN_REPS}); peak "
+                    f"{peak / 1e9:.2f} GB{counted}; loss "
+                    f"{float(m['loss']):.4f} [{smi}]")
+                if not np.isfinite(float(m["loss"])):
+                    raise AssertionError(f"{key}: loss not finite")
+                del task, state, m, holder
+        out["step_time"] = timing
+    return out
+
+
 def tts_phases(dev, smi, tmp) -> dict:
     """The port's entry point with both trained checkpoints: one
     ``TTSPipeline.tts`` call on 4 texts (Tacotron, Griffin-Lim and vocoder
@@ -2188,10 +2676,12 @@ def main() -> int:
         data = data_phases(dev, smi, tmp, corpus,
                            train["step_time"]["float32"]["ms_median"],
                            train["seeded_eval_loss"])
+        taco_train = taco_train_phases(dev, smi, tmp, corpus)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     data["preprocess"] = preprocess
     cli_launches = data.pop("launches")
+    taco_cli_launches = taco_train.pop("launches")
 
     kernels = []
     for v, t in timing.items():
@@ -2223,6 +2713,8 @@ def main() -> int:
             entry["launches_train_serve"] = train["serve"]["launches"][v]
         if v in cli_launches:
             entry["launches_train_cli"] = cli_launches[v]
+        if v in taco_cli_launches:
+            entry["launches_tacotron_train_cli"] = taco_cli_launches[v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -2234,6 +2726,7 @@ def main() -> int:
     print(json.dumps({"tts": dict(tts, card=smi)}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"taco_train": taco_train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

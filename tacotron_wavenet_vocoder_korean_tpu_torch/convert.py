@@ -350,6 +350,44 @@ def fuse_gru_params(tree):
     return out
 
 
+_FUSED_LEAVES = ("w_ih", "w_hh", "b_ih", "b_hn")
+# Scopes of the JAX ``GRU`` module, whose flax ``GRUCell`` is ``GRUCell_0``
+# inside them; every other fused scope is a cell itself.
+_GRU_MODULE_SCOPES = ("gru_fw", "gru_bw")
+
+
+def _unfuse_cell(d) -> dict:
+    ir, iz, in_ = np.split(np.asarray(d["w_ih"]), 3, axis=1)
+    hr, hz, hn = np.split(np.asarray(d["w_hh"]), 3, axis=1)
+    br, bz, bn = np.split(np.asarray(d["b_ih"]), 3)
+    return {"ir": {"kernel": ir, "bias": br}, "iz": {"kernel": iz, "bias": bz},
+            "in": {"kernel": in_, "bias": bn}, "hr": {"kernel": hr},
+            "hz": {"kernel": hz},
+            "hn": {"kernel": hn, "bias": np.asarray(d["b_hn"])}}
+
+
+def unfuse_gru_params(tree):
+    """The inverse of :func:`fuse_gru_params`, exact (a split of each
+    fused leaf into its gate blocks r, z, n): the fused leaves of a
+    CBHG's ``gru_fw`` / ``gru_bw`` scope become the flax ``GRUCell`` named
+    ``GRUCell_0`` inside it, those of a decoder cell become its
+    ``ir/iz/in/hr/hz/hn`` Denses.  Elementwise trees of the same layout
+    (Adam's moments) split the same way."""
+    if not isinstance(tree, Mapping):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and set(_FUSED_LEAVES) <= set(v):
+            rest = {kk: unfuse_gru_params(vv) for kk, vv in v.items()
+                    if kk not in _FUSED_LEAVES}
+            cell = _unfuse_cell(v)
+            out[k] = ({**rest, "GRUCell_0": cell} if k in _GRU_MODULE_SCOPES
+                      else {**rest, **cell})
+        else:
+            out[k] = unfuse_gru_params(v)
+    return out
+
+
 def _jax_key(key: str, scopes: Mapping[str, str]) -> Tuple[str, str]:
     """torch ``state_dict`` key -> (flax collection, flat flax name)."""
     path, _, leaf = key.rpartition(".")
@@ -370,18 +408,23 @@ def state_from_jax(module: torch.nn.Module, params: Mapping,
                    ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of ``module`` (any of the port's Tacotron modules)
     from a flax ``params`` tree and its ``batch_stats`` (nested, or flat
-    with ``/``-joined names).  ``scopes`` renames flax scopes that differ
-    from the module's attribute paths.  Raises on a missing name, a wrong
-    shape, or a name left unused."""
+    with ``/``-joined names); with ``batch_stats`` None, the parameters
+    alone (no running statistics, no ``num_batches_tracked``).
+    ``scopes`` renames flax scopes that differ from the module's attribute
+    paths.  Raises on a missing name, a wrong shape, or a name left
+    unused."""
     flat = {("params", k): v for k, v in flatten(params).items()}
     flat.update({("batch_stats", k): v
                  for k, v in flatten(batch_stats or {}).items()})
     out, used, missing = {}, set(), []
     for key, ref in module.state_dict().items():
         if key.endswith("num_batches_tracked"):
-            out[key] = torch.zeros((), dtype=torch.long)
+            if batch_stats is not None:
+                out[key] = torch.zeros((), dtype=torch.long)
             continue
         name = _jax_key(key, scopes or {})
+        if name[0] == "batch_stats" and batch_stats is None:
+            continue
         if name not in flat:
             missing.append("/".join(name))
             continue
@@ -428,6 +471,33 @@ def tacotron_params_from_jax(cfg: TacotronConfig, tree: Mapping,
     fused = fuse_gru_params(_nest(flatten(tree)))
     state = state_from_jax(model, fused, batch_stats, tacotron_scopes(model))
     return {k: v.to(device) for k, v in state.items()}
+
+
+def tacotron_to_jax(cfg: TacotronConfig, tensors: Mapping[str, torch.Tensor],
+                    audio: Optional[AudioConfig] = None,
+                    vocab_size: int = 80) -> Dict[str, dict]:
+    """The inverse of :func:`tacotron_params_from_jax`: tensors under the
+    port's ``state_dict`` names (all of them or any part, such as the
+    parameters alone or Adam's moments of them) as the nested numpy trees
+    ``{"params": ..., "batch_stats": ...}`` that the JAX ``Tacotron`` with
+    this config holds: flax names, flax layouts, and flax ``GRUCell``s
+    when the config says ``fused_rnn: false``."""
+    model = tacotron_skeleton(cfg, audio, vocab_size)
+    scopes = tacotron_scopes(model)
+    known = model.state_dict()
+    out = {"params": {}, "batch_stats": {}}
+    for key, v in tensors.items():
+        if key not in known or key.endswith("num_batches_tracked"):
+            raise KeyError(f"{key}: not a Tacotron parameter or statistic")
+        col, name = _jax_key(key, scopes)
+        a = v.detach().cpu().numpy()
+        if name.rpartition("/")[2] in _TRANSPOSED:
+            a = a.T
+        out[col][name] = np.array(a, order="C")
+    params = _nest(out["params"])
+    if not cfg.fused_rnn:
+        params = unfuse_gru_params(params)
+    return {"params": params, "batch_stats": _nest(out["batch_stats"])}
 
 
 def tacotron_params_from_npz(cfg: TacotronConfig, path: str,

@@ -14,13 +14,15 @@ flax ``GRUCell``s is fused by ``convert.fuse_gru_params`` first.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 Dtype = Optional[torch.dtype]
+# New running statistics of a training forward, by module.
+BNUpdates = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def compute_dtype(dtype: Dtype) -> torch.dtype:
@@ -193,12 +195,22 @@ class HighwayLayer(nn.Module):
 
 
 class BatchNormConv1d(nn.Module):
-    """SAME conv1d -> activation -> batch norm from its running statistics
-    (inference), on [B, C, T].  SAME pads (k-1)//2 on the left and k//2 on
-    the right, as flax does (asymmetric for even k).  The norm is computed
-    in float32 as flax's is (x - mean, times rsqrt(var + eps) * scale, plus
-    bias) and rounded to the compute type.  flax's momentum 0.99 is
-    torch's 0.01; eps is 1e-5 in both."""
+    """SAME conv1d -> activation -> batch norm, on [B, C, T].  SAME pads
+    (k-1)//2 on the left and k//2 on the right, as flax does (asymmetric
+    for even k).  The norm is computed in float32 as flax's is (x - mean,
+    times rsqrt(var + eps) * scale, plus bias) and rounded to the compute
+    type; eps is 1e-5.
+
+    Inference normalises with the running statistics.  ``train=True``
+    normalises with the batch's, over B x T (padding included) in float32:
+    the mean and flax's fast variance ``mean(x^2) - mean(x)^2`` clamped at
+    0, the biased variance.  The new running statistics,
+    ``0.99 * old + 0.01 * batch`` (flax's momentum 0.99, the biased
+    variance too, unlike ``torch.nn.BatchNorm1d``'s update), are returned
+    through ``bn_updates``: ``bn_updates[self] = (mean, var)``, detached;
+    the module's buffers are left as they were."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, in_dim: int, channels: int, kernel_size: int,
                  activation: Optional[str] = None, dtype: Dtype = None):
@@ -209,7 +221,8 @@ class BatchNormConv1d(nn.Module):
         self.conv = nn.Conv1d(in_dim, channels, kernel_size)
         self.bn = nn.BatchNorm1d(channels, eps=1e-5, momentum=0.01)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_updates: Optional[BNUpdates] = None) -> torch.Tensor:
         dt = compute_dtype(self.dtype)
         k = self.kernel_size
         y = F.conv1d(F.pad(x.to(dt), ((k - 1) // 2, k // 2)),
@@ -218,8 +231,20 @@ class BatchNormConv1d(nn.Module):
         if self.activation == "relu":
             y = F.relu(y)
         bn = self.bn
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        y = (y.float() - bn.running_mean[:, None]) * mul[:, None]
+        yf = y.float()
+        if train:
+            mean = yf.mean(dim=(0, 2))
+            var = torch.clamp((yf * yf).mean(dim=(0, 2)) - mean * mean,
+                              min=0.0)
+            if bn_updates is not None:
+                m = self.MOMENTUM
+                bn_updates[self] = (
+                    (m * bn.running_mean + (1 - m) * mean).detach(),
+                    (m * bn.running_var + (1 - m) * var).detach())
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (yf - mean[:, None]) * mul[:, None]
         return (y + bn.bias[:, None]).to(dt)
 
 
@@ -258,17 +283,21 @@ class CBHG(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 input_lengths: Optional[torch.Tensor] = None,
                 before_highway: Optional[torch.Tensor] = None,
-                rnn_init_state: Optional[torch.Tensor] = None
+                rnn_init_state: Optional[torch.Tensor] = None,
+                train: bool = False, bn_updates: Optional[BNUpdates] = None
                 ) -> torch.Tensor:
+        """``train``: batch norm from the batch's statistics, the new
+        running ones into ``bn_updates`` (see ``BatchNormConv1d``)."""
         x = inputs.transpose(1, 2)                        # [B, C, T]
-        bank = torch.cat([getattr(self, f"conv1d_bank_{k}")(x)
+        bank = torch.cat([getattr(self, f"conv1d_bank_{k}")(x, train,
+                                                            bn_updates)
                           for k in range(1, self.bank_size + 1)], dim=1)
         # Max pooling, stride 1, right-padded with -inf.
         w = self.maxpool_width
         proj = F.max_pool1d(F.pad(bank, (0, w - 1), value=float("-inf")),
                             kernel_size=w, stride=1)
         for idx in range(self.n_proj):
-            proj = getattr(self, f"proj_{idx + 1}")(proj)
+            proj = getattr(self, f"proj_{idx + 1}")(proj, train, bn_updates)
         proj = proj.transpose(1, 2)                       # [B, T, C]
 
         highway_input = proj + inputs

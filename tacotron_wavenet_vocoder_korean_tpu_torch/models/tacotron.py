@@ -1,10 +1,16 @@
-"""Tacotron-1 free-run inference (counterpart of the JAX package's
-``models/tacotron.py``: ``Tacotron`` with ``train=False, free_run=True``).
+"""Tacotron-1, its loss and its schedules (counterpart of the JAX
+package's ``models/tacotron.py``).
 
 text ids -> embedding (PAD row zeroed at apply time) -> encoder prenet ->
 CBHG (speaker-conditioned) -> memory mask, zeroed padding, ``memory_layer``
--> a decoder loop of a static ``max_iters`` steps -> mel [B, T_dec*r, M]
--> post-net CBHG -> ``linear_projection`` [B, T_dec*r, num_freq].
+-> a decoder loop -> mel [B, T_dec*r, M] -> post-net CBHG ->
+``linear_projection`` [B, T_dec*r, num_freq].  Without targets the decoder
+runs free for a static ``max_iters`` steps; with ``mel_targets`` [B, T_out,
+M] it runs T_out / r steps, teacher-forced (step t is fed block t-1's last
+target frame, step 0 the <GO> zero frame), or free-running against them
+(``free_run=True``, the evaluation), or with scheduled sampling
+(``use_teacher``: per step and example, the target frame or the model's
+own last frame).
 
 The decoder loop is an explicit Python loop over ``DecoderStep`` (the JAX
 package's ``_ScanDecoderStep``); it holds nothing back on the host, so the
@@ -15,10 +21,16 @@ float32.  Decoder-prenet dropout is live when the config asks for it and a
 ``torch.Generator`` is passed (the JAX model gates it on a dropout rng), or
 when keep-masks are given.
 
+``train=True`` is flax's training mode: batch norm from the batch's
+statistics (the new running statistics come back through ``bn_updates``)
+and dropout in both prenets, from keep-masks the caller passes or draws
+from a ``torch.Generator``.  Under autograd the decoder casts its bf16
+weights per step, so their gradients accumulate in float32 as JAX's scan
+accumulates them; serving casts them once (``cast_for_loop``).
+
 Multi-speaker conditioning is the ``deepvoice`` mode (soft-sign speaker
 projections into the encoder's residual and every recurrent initial
-state).  Teacher forcing, scheduled sampling and the losses belong to
-training, which is not ported yet.
+state).
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ from torch import nn
 
 from ..config import AudioConfig, TacotronConfig
 from .attention import make_attention
-from .modules import CBHG, FusedGRUCell, Prenet, compute_dtype, dense
+from .modules import (BNUpdates, CBHG, FusedGRUCell, Prenet,
+                      compute_dtype, dense)
 
 
 class DecoderCarry(NamedTuple):
@@ -78,10 +91,19 @@ class DecoderStep(nn.Module):
             cfg.dec_rnn_size, cfg.reduction_factor * num_mels)
 
     def forward(self, carry: DecoderCarry, keys, values_f32, mask,
-                score_vector, prenet_scales=None, manual_alignment=None
+                score_vector, prenet_scales=None, manual_alignment=None,
+                teacher_frame=None, take_teacher=None
                 ) -> Tuple[DecoderCarry, torch.Tensor, torch.Tensor]:
+        """``teacher_frame`` [B, M]: fed in place of the last emitted
+        frame, where ``take_teacher`` [B] (bool) is set, or everywhere
+        when it is None."""
         dt = compute_dtype(self.dtype)
-        x = self.decoder_prenet(carry.prev_frame, prenet_scales)
+        frame_in = carry.prev_frame
+        if teacher_frame is not None:
+            frame_in = (teacher_frame if take_teacher is None else
+                        torch.where(take_teacher[:, None], teacher_frame,
+                                    carry.prev_frame))
+        x = self.decoder_prenet(frame_in, prenet_scales)
         attn_cell = self.attention_gru(
             carry.attn_cell, torch.cat([x, carry.context], dim=-1))
         alignments, next_attn_state = self.attention(
@@ -151,25 +173,37 @@ class Decoder(nn.Module):
 
     def forward(self, enc: Encoded, max_steps: int,
                 prenet_masks: Optional[Sequence[torch.Tensor]] = None,
-                manual_alignments: Optional[torch.Tensor] = None
+                manual_alignments: Optional[torch.Tensor] = None,
+                teacher: Optional[torch.Tensor] = None,
+                use_teacher: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``prenet_masks``: one keep-mask per prenet layer, [T_dec, B,
         size] (bool), or None for no dropout.  ``manual_alignments``:
         [B, T_dec, T_in] injected in place of the computed alignments (the
-        mechanism's own state still advances), or None."""
-        step = self.step.cast_for_loop()
+        mechanism's own state still advances), or None.  ``teacher``:
+        [T_dec, B, M] frames fed at each step (None: free run), where
+        ``use_teacher`` [T_dec, B] (bool) is set, or everywhere when it is
+        None."""
+        # Under autograd the per-call casts stay in the graph; each step's
+        # weight gradient is cast back to float32 before it accumulates.
+        step = (self.step if torch.is_grad_enabled()
+                else self.step.cast_for_loop())
         carry = self.initial_carry(enc)
         values_f32 = enc.values.float()
         score_vector = step.attention.score_vector()
         scales = (None if prenet_masks is None
                   else step.decoder_prenet.scales_from_masks(prenet_masks))
+        if teacher is not None:
+            teacher = teacher.to(compute_dtype(self.dtype))
         frames, alignments = [], []
         for t in range(max_steps):
             carry, f, a = step(
                 carry, enc.keys, values_f32, enc.mask, score_vector,
                 None if scales is None else [s[t] for s in scales],
                 None if manual_alignments is None
-                else manual_alignments[:, t])
+                else manual_alignments[:, t],
+                None if teacher is None else teacher[t],
+                None if use_teacher is None else use_teacher[t])
             frames.append(f)
             alignments.append(a)
         B = enc.values.shape[0]
@@ -224,9 +258,13 @@ class Tacotron(nn.Module):
                                            audio.num_freq)
 
     def encode(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
-               speaker_id: Optional[torch.Tensor] = None) -> Encoded:
+               speaker_id: Optional[torch.Tensor] = None,
+               prenet_masks: Optional[Sequence[torch.Tensor]] = None,
+               train: bool = False,
+               bn_updates: Optional[BNUpdates] = None) -> Encoded:
         """inputs [B, T_in] ids, input_lengths [B] (EOS included),
-        speaker_id [B] (valid, non-negative ids: the caller checks them)."""
+        speaker_id [B] (valid, non-negative ids: the caller checks them),
+        ``prenet_masks`` [B, T_in, size] per layer (dropout) or None."""
         cfg = self.cfg
         table = torch.cat([torch.zeros_like(self.char_embedding[:1]),
                            self.char_embedding[1:]])   # PAD row zeroed
@@ -246,9 +284,12 @@ class Tacotron(nn.Module):
                     deep_dense(getattr(self, f"sp_decoder_rnn_init_{i + 1}"))
                     for i in range(cfg.dec_layer_num)],
             }
-        prenet_out = self.encoder_prenet(char_embedded)
+        prenet_out = self.encoder_prenet(
+            char_embedded, None if prenet_masks is None
+            else self.encoder_prenet.scales_from_masks(prenet_masks))
         encoder_outputs = self.encoder_cbhg(prenet_out, input_lengths,
-                                            before_highway, enc_init)
+                                            before_highway, enc_init, train,
+                                            bn_updates)
         T_in = inputs.shape[1]
         mask = (torch.arange(T_in, device=inputs.device)[None, :]
                 < input_lengths[:, None])
@@ -256,9 +297,11 @@ class Tacotron(nn.Module):
         keys = dense(self.memory_layer, values)           # float32
         return Encoded(keys, values, mask, init_states)
 
-    def postnet(self, mel: torch.Tensor) -> torch.Tensor:
+    def postnet(self, mel: torch.Tensor, train: bool = False,
+                bn_updates: Optional[BNUpdates] = None) -> torch.Tensor:
         """mel [B, T, M] (compute type) -> linear [B, T, num_freq]."""
-        return dense(self.linear_projection, self.post_cbhg(mel), self.dtype)
+        post = self.post_cbhg(mel, train=train, bn_updates=bn_updates)
+        return dense(self.linear_projection, post, self.dtype)
 
     def draw_prenet_masks(self, max_iters: int, batch: int,
                           generator: torch.Generator) -> List[torch.Tensor]:
@@ -267,26 +310,137 @@ class Tacotron(nn.Module):
         return self.decoder.step.decoder_prenet.draw_masks(
             (max_iters, batch), generator, generator.device)
 
+    def draw_encoder_masks(self, batch: int, T_in: int,
+                           generator: torch.Generator) -> List[torch.Tensor]:
+        """Encoder-prenet keep-masks for training, [B, T_in, size] per
+        layer, drawn from ``generator`` on its device."""
+        return self.encoder_prenet.draw_masks((batch, T_in), generator,
+                                              generator.device)
+
+    def running_stats(self, bn_updates: BNUpdates) -> Dict[str, torch.Tensor]:
+        """``bn_updates`` under the ``state_dict`` names of the running
+        statistics (``<module>.bn.running_mean`` / ``running_var``)."""
+        out = {}
+        for name, module in self.named_modules():
+            if module in bn_updates:
+                mean, var = bn_updates[module]
+                out[f"{name}.bn.running_mean"] = mean
+                out[f"{name}.bn.running_var"] = var
+        return out
+
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 speaker_id: Optional[torch.Tensor] = None,
                 max_iters: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
                 prenet_masks: Optional[Sequence[torch.Tensor]] = None,
-                manual_alignments: Optional[torch.Tensor] = None
+                manual_alignments: Optional[torch.Tensor] = None,
+                mel_targets: Optional[torch.Tensor] = None,
+                train: bool = False, free_run: bool = False,
+                use_teacher: Optional[torch.Tensor] = None,
+                encoder_prenet_masks: Optional[Sequence[torch.Tensor]] = None,
+                bn_updates: Optional[BNUpdates] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Free-run decode over a static ``max_iters`` (default the
-        config's).  Prenet dropout: ``prenet_masks`` if given, else masks
-        drawn from ``generator`` when the config keeps dropout on at
+        """Without ``mel_targets``: a free-run decode over a static
+        ``max_iters`` (default the config's).  With ``mel_targets`` [B,
+        T_out, M] (T_out a multiple of r): T_out / r steps, teacher-forced
+        unless ``free_run``; ``use_teacher`` [T_dec, B] (bool) mixes the
+        model's own frames in where it is False (scheduled sampling).
+
+        ``train``: batch norm from the batch (new statistics into
+        ``bn_updates``) and dropout in both prenets, from
+        ``encoder_prenet_masks`` / ``prenet_masks`` or else drawn from
+        ``generator`` (at a dropout rate of 0 there is none, as in flax).
+        Not training, decoder-prenet dropout is ``prenet_masks`` if given,
+        else drawn from ``generator`` when the config keeps it on at
         inference, else none."""
-        max_iters = max_iters or self.cfg.max_iters
-        enc = self.encode(inputs, input_lengths, speaker_id)
-        if (prenet_masks is None and generator is not None
-                and self.cfg.dec_prenet_dropout_inference):
-            prenet_masks = self.draw_prenet_masks(max_iters, inputs.shape[0],
-                                                  generator)
-        mel, alignments = self.decoder(enc, max_iters, prenet_masks,
-                                       manual_alignments)
-        linear = self.postnet(mel)
+        cfg = self.cfg
+        B, T_in = inputs.shape
+        dropout = train and cfg.dropout_prob > 0
+        if (dropout and generator is None
+                and (prenet_masks is None or encoder_prenet_masks is None)):
+            raise ValueError("training with dropout needs its keep-masks "
+                             "or a generator")
+        if dropout and encoder_prenet_masks is None:
+            encoder_prenet_masks = self.draw_encoder_masks(B, T_in, generator)
+        if not dropout:
+            encoder_prenet_masks = None
+        enc = self.encode(inputs, input_lengths, speaker_id,
+                          encoder_prenet_masks, train, bn_updates)
+        r = cfg.reduction_factor
+        teacher = None
+        if mel_targets is not None:
+            max_steps = mel_targets.shape[1] // r
+            if not free_run:
+                block_last = mel_targets[:, r - 1::r].transpose(0, 1)
+                teacher = torch.cat([torch.zeros_like(block_last[:1]),
+                                     block_last[:-1]])
+        else:
+            max_steps = max_iters or cfg.max_iters
+        if train and not dropout:
+            prenet_masks = None
+        elif prenet_masks is None and generator is not None and (
+                dropout or cfg.dec_prenet_dropout_inference):
+            prenet_masks = self.draw_prenet_masks(max_steps, B, generator)
+        mel, alignments = self.decoder(
+            enc, max_steps, prenet_masks, manual_alignments, teacher,
+            None if teacher is None else use_teacher)
+        linear = self.postnet(mel, train, bn_updates)
         return {"mel_outputs": mel.float(),
                 "linear_outputs": linear.float(),
                 "alignments": alignments.float()}
+
+
+def tacotron_loss(outputs: Dict[str, torch.Tensor],
+                  mel_targets: torch.Tensor, linear_targets: torch.Tensor,
+                  loss_coeff: torch.Tensor, cfg: TacotronConfig,
+                  audio: AudioConfig) -> Dict[str, torch.Tensor]:
+    """L1 mel + L1 linear weighted per example by ``loss_coeff``, with the
+    165-5,000 Hz band of the linear loss counted twice when
+    ``prioritize_loss`` is set; float32."""
+    mel_l1 = torch.abs(mel_targets - outputs["mel_outputs"])
+    lin_l1 = torch.abs(linear_targets - outputs["linear_outputs"])
+    coeff = loss_coeff[:, None, None]
+    if cfg.prioritize_loss:
+        upper = int(5000 / (audio.sample_rate * 0.5) * audio.num_freq)
+        lower = int(165 / (audio.sample_rate * 0.5) * audio.num_freq)
+        priority = lin_l1[:, :, lower:upper]
+        loss = (torch.mean(mel_l1 * coeff)
+                + 0.5 * torch.mean(lin_l1 * coeff)
+                + 0.5 * torch.mean(priority * coeff))
+        linear_loss = 0.5 * (torch.mean(lin_l1) + torch.mean(priority))
+    else:
+        loss = torch.mean(mel_l1 * coeff) + torch.mean(lin_l1 * coeff)
+        linear_loss = torch.mean(lin_l1)
+    mel_loss = torch.mean(mel_l1)
+    return {"loss": loss, "mel_loss": mel_loss, "linear_loss": linear_loss,
+            "loss_without_coeff": mel_loss + linear_loss}
+
+
+def scheduled_sampling_prob(cfg: TacotronConfig, step: torch.Tensor
+                            ) -> torch.Tensor:
+    """The teacher-forcing probability at ``step`` (a tensor): 1 until
+    ``ss_start_step``, then linear to ``ss_final_prob`` over
+    ``ss_ramp_steps``, constant after; float32."""
+    s = step.to(torch.float32)
+    frac = torch.clamp((s - cfg.ss_start_step) / max(cfg.ss_ramp_steps, 1),
+                       0.0, 1.0)
+    return 1.0 + frac * (cfg.ss_final_prob - 1.0)
+
+
+def learning_rate_schedule(cfg: TacotronConfig,
+                           is_randomly_initialized: bool = False):
+    """``step -> learning rate`` (float32 tensors).  Mode 0: Noam's warmup,
+    ``lr0 * w^0.5 * min(s * w^-1.5, s^-0.5)`` at s = step + 1, w = 4,000
+    for a randomly initialized run (a fresh one or a resumed one), else
+    40,000; mode 1: ``lr0 * 0.95^(s / 3000)``."""
+    warmup = 4000.0 if is_randomly_initialized else 40000.0
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        s = step.to(torch.float32) + 1.0
+        if cfg.decay_learning_rate_mode == 1:
+            return cfg.initial_learning_rate * torch.pow(
+                torch.full_like(s, 0.95), s / 3000.0)
+        return (cfg.initial_learning_rate * warmup ** 0.5
+                * torch.minimum(s * warmup ** -1.5, torch.pow(s, -0.5)))
+
+    return schedule

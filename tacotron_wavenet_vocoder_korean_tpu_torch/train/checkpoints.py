@@ -28,7 +28,7 @@ import shutil
 import tarfile
 import tempfile
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -341,20 +341,27 @@ def load_run_config(load_path: str) -> Config:
 
 
 def restore_into_state(task_state: Any, load_path: Optional[str],
-                       initialize_path: Optional[str]) -> Tuple[Any, int]:
+                       initialize_path: Optional[str],
+                       from_tree: Optional[Callable[[Any, Any], Any]] = None
+                       ) -> Tuple[Any, int]:
     """Apply the load / initialize semantics to a freshly made state and
     return ``(state, start_step)``: ``load_path`` continues a run, keeping
     its step; ``initialize_path`` warm-starts from its weights and optimizer
     state with the step reset to 0; both at once raise.  Either path may be
     a run dir, its ``ckpt/`` dir or a ``*.ckpt.tar.gz``; the latest step is
-    read, every leaf checked against ``task_state``."""
+    read, every leaf checked against ``task_state``.  ``from_tree(
+    task_state, tree)`` first maps the JAX tree to the port's names where
+    they differ (the Tacotron task's ``from_jax_tree``)."""
     if load_path and initialize_path:
         raise ValueError("load_path and initialize_path are mutually "
                          "exclusive")
     if not load_path and not initialize_path:
         return task_state, 0
     with CheckpointReader(load_path or initialize_path) as reader:
-        state = from_jax_tree(task_state, reader.restore(items=None))
+        tree = reader.restore(items=None)
+    if from_tree is not None:
+        tree = from_tree(task_state, tree)
+    state = from_jax_tree(task_state, tree)
     if initialize_path:
         return state._replace(step=torch.zeros_like(state.step)), 0
     return state, int(state.step)

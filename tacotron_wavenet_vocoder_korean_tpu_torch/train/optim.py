@@ -1,5 +1,5 @@
-"""The optimizers of WaveNet training, equal to optax 0.2.6 as the JAX
-package's ``train/wavenet_task.py`` uses it: ``exponential_decay``,
+"""The optimizers of training, equal to optax 0.2.6 as the JAX package's
+``train/wavenet_task.py`` and ``train/tacotron_task.py`` use it: ``exponential_decay``,
 ``adam``, ``sgd`` and ``rmsprop`` with momentum, ``clip_by_global_norm``,
 ``chain``, ``apply_updates``, ``incremental_update`` (the EMA) and
 ``global_norm``.
@@ -183,8 +183,9 @@ def chain(*txs: Transformation) -> Transformation:
     return Transformation(init, update)
 
 
-def adam(schedule: Schedule) -> Transformation:
-    return chain(scale_by_adam(), scale_by_learning_rate(schedule))
+def adam(schedule: Schedule, b1: float = 0.9, b2: float = 0.999
+         ) -> Transformation:
+    return chain(scale_by_adam(b1, b2), scale_by_learning_rate(schedule))
 
 
 def sgd(schedule: Schedule, momentum: float) -> Transformation:

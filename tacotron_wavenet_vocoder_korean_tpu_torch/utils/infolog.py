@@ -1,9 +1,12 @@
-"""Timestamped logging to stdout and a run's log file, and a moving
-average (counterpart of the JAX package's ``utils/infolog.py``, without
-its Slack mirror: the port sends nothing over the network)."""
+"""Timestamped logging to stdout and a run's log file, a moving average
+(counterpart of the JAX package's ``utils/infolog.py``, without its Slack
+mirror: the port sends nothing over the network), and the Tacotron
+trainer's JSONL scalar log."""
 from __future__ import annotations
 
 import atexit
+import json
+import time
 from datetime import datetime
 
 _format = "%Y-%m-%d %H:%M:%S.%f"
@@ -62,3 +65,22 @@ class ValueWindow:
 
     def reset(self) -> None:
         self._values = []
+
+
+class MetricsWriter:
+    """Appends one JSON line per call: ``step``, ``time`` and every 0-d
+    value of ``metrics`` as a float (the JAX Tacotron trainer's
+    ``metrics.jsonl``)."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "a", encoding="utf-8")
+
+    def write(self, step: int, metrics: dict) -> None:
+        rec = {"step": step, "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()
+                    if getattr(v, "ndim", 0) == 0})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()

@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA generation kernel against its plain twin on the
 card (tests marked ``cuda``; they skip without a GPU), the Tacotron decode
-on the card against the same decode on the CPU, and the twin at the
+and a Tacotron training step on the card against the same on the CPU, and
+the twin at the
 kernel's own widths (R = D = 32) against the JAX scan sampler where JAX is
 installed.
 
@@ -241,6 +242,49 @@ def test_cuda_tacotron_speaker_id_out_of_range_raises_on_the_host():
                          attention_trim=False)[0]["mel"]
     assert a.shape == (20, 80) and np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_tacotron_train_step_matches_cpu():
+    """The gradient step of seeded both_r2 weights (f32, dropout off, B =
+    2, T_in 16, T_out 50) on the card and on the CPU: the loss within 1e-5
+    relative, the whole gradient within 1e-5 relative in the L2 norm (with
+    cuDNN's convolutions the card's is hundreds of times farther, which
+    is why the task runs without them: ``chip_smoke.py``), the new running
+    variances within 1e-5 of each leaf's largest, the new running means
+    within 1e-5 of the largest of them all (a mean is 0.01 times a batch
+    mean that may cancel to ~1e-4, below the devices' rounding)."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device)
+    _cuda()
+    cfg = Config(tacotron=dataclasses.replace(
+        BOTH_R2, compute_dtype="float32", dropout_prob=0.0))
+    rng = np.random.RandomState(0)
+    batch = {"inputs": rng.randint(2, 70, (2, 16)),
+             "input_lengths": np.array([16, 11]),
+             "loss_coeff": np.ones(2, np.float32),
+             "mel_targets": rng.randn(2, 50, 80),
+             "linear_targets": rng.randn(2, 50, 1025),
+             "speaker_id": np.array([0, 1])}
+    out = {}
+    for d in ("cuda", "cpu"):
+        task = TacotronTask(cfg, is_randomly_initialized=True, device=d)
+        state = task.init_state(0)
+        out[d] = task.grads(state.params, state.batch_stats,
+                            batch_to_device(batch, d, "float16"))
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(l_card["loss"]), float(l_cpu["loss"]),
+                               rtol=1e-5)
+    diff = sum(float(((g_card[k].cpu() - g) ** 2).sum())
+               for k, g in g_cpu.items())
+    norm = sum(float((g ** 2).sum()) for g in g_cpu.values())
+    assert diff ** 0.5 <= 1e-5 * norm ** 0.5
+    means = max(float(v.abs().max()) for k, v in s_cpu.items()
+                if k.endswith("running_mean"))
+    for k, v in s_cpu.items():
+        scale = (means if k.endswith("running_mean")
+                 else float(v.abs().max()))
+        assert float((s_card[k].cpu() - v).abs().max()) <= 1e-5 * scale, k
 
 
 def test_twin_at_kernel_width_matches_jax_scan_sampler():

@@ -484,6 +484,25 @@ def test_tiny_free_run_matches_jax(tiny_f32, key):
     close(got[key], want[key], 1e-4, key)
 
 
+def test_single_speaker_free_run_matches_jax():
+    """num_speakers=1 (no speaker table, no deepvoice projections), TINY,
+    f32, the full 30 steps: <= 1e-5 (observed 7.2e-7 mel, 3.0e-7 linear,
+    7.5e-8 alignments)."""
+    cfg = dataclasses.replace(TINY, num_speakers=1, model_type="single")
+    variables = _random_variables(cfg, True, 22)
+    assert "speaker_embedding" not in variables["params"]
+    x, lengths, _ = _inputs()
+    spk = np.zeros(2, np.int32)
+    want = _jax_decode(cfg, jax.tree.map(jnp.asarray, variables), x,
+                       lengths, spk)
+    state = convert.tacotron_params_from_jax(cfg, variables["params"],
+                                             variables["batch_stats"])
+    got = _port_decode(cfg, state, x, lengths, spk)
+    for key in want:
+        assert got[key].shape == want[key].shape
+        close(got[key], want[key], 1e-5, key)
+
+
 def test_full_width_free_run_matches_jax():
     """both_r2 widths, f32, max_iters cut to 20: <= 1e-3 (observed ~1e-6
     mel, ~1e-6 linear, ~1e-7 alignments)."""
