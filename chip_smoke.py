@@ -145,8 +145,8 @@ KS_ALPHA_COEF = 1.95
 ALPHA = 0.001
 # Timing: the plain twin is timed over a span of this many steps; the
 # previous step design beside the kernel over SIDE_T steps of B = 4.
-SPAN = 512
-SIDE_T = 16384
+SPAN = 256
+SIDE_T = 8192
 # Tacotron (text -> mel): four requests, two per speaker, with digits and
 # Latin letters, decoded in one batch over the served max_iters.
 TEXTS = ["존경하는 국민 여러분, 오늘은 2026년 10월 17일입니다.",
@@ -262,6 +262,42 @@ TACO_OVERRIDES: dict = {}
 TACO_CLI_ARGS: list = []
 TACO_STORE_BATCHES = 32           # (d): one group of 32 batches
 TACO_SEEDED_STEPS = 10            # (e)
+# Every attention type of the JAX table, and bah_mon_norm with simple
+# speakers ("simple"), at the both_r2 width with seeded weights.  (a) TEXTS
+# decoded at B = 4 in bf16 over ATT_SERVE_STEPS steps with prenet dropout,
+# as served; the padded encoder positions get < ATT_MASKED_TOL (JAX's
+# test_attention_types_forward); the decoder loop timed over ATT_REPS
+# after a warm-up, kernels per step by torch.profiler (40 - 20 steps).
+# (b) a deterministic decode of TEXTS[:ATT_CMP_B] over ATT_CMP_STEPS, card
+# vs CPU: f32 within ATT_F32_TOL of the largest |value| (the alignments'
+# for the alignments, the mel's for mel and linear, or the bound itself
+# below 1: GMM's alignments are unnormalised), bf16 within
+# TACO_BF16_RATIO x the CPU's own mean |bf16 - f32|.  (c) the gradient
+# of one f32 training step (B = ATT_CMP_B, T_out = ATT_GRAD_T_OUT, the
+# same dropout masks), card vs CPU: the loss within TACO_LOSS_TOL
+# relative, the whole gradient within TACO_GRAD_TOL in the L2 norm; gmm's
+# within ATT_GMM_GRAD_TOL: at seeded weights its unnormalised alignments
+# give a loss of ~100 (printed; the others' ~1.7), and its f32 gradient
+# there is ill-conditioned: the port and JAX, both on a CPU, part by
+# ~1e-3 (tests/test_torch_attention_train.py), and the CPU's own
+# gradient moves by ~6e-3 with oneDNN's convolutions off (printed for
+# every type).  (d)
+# train_tacotron --model_type simple from seeded weights on the two
+# speaker dirs, ATT_CLI_STEPS steps, served by the tts CLI with trained
+# wn_moon for speakers 0 and 1 (one kernel launch).
+ATT_SERVE_STEPS = 200
+ATT_REPS = 3
+ATT_MASKED_TOL = 1e-3
+ATT_CMP_B = 2
+ATT_CMP_STEPS = 50
+ATT_F32_TOL = 1e-4
+ATT_GRAD_T_OUT = 100
+ATT_GMM_GRAD_TOL = 2e-2
+ATT_CLI_STEPS = 10
+ATT_CLI_HPARAMS = ("tacotron.compute_dtype=bfloat16,tacotron.fused_rnn=true,"
+                   "tacotron.scan_unroll=8,train.sync_every=10,"
+                   "train.summary_interval=10,train.test_interval=10,"
+                   "train.best_eval_batches=1")
 
 
 def log(msg: str) -> None:
@@ -1753,7 +1789,24 @@ def run_side_by_side(cmds: dict, dev, tmp: str) -> dict:
     return done
 
 
-def taco_train_phases(dev, smi, tmp, data: str) -> dict:
+def taco_speaker_dirs(tmp: str, data: str) -> list:
+    """The corpus ``data`` split into two speaker dirs under ``tmp``:
+    the moon clips (speaker 0) and the son clips (``NB*``, speaker 1)."""
+    dirs = []
+    for i, mine in enumerate((lambda f: not f.startswith("NB"),
+                              lambda f: f.startswith("NB"))):
+        d = os.path.join(tmp, f"taco_speaker{i}")
+        os.makedirs(d)
+        sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
+        for r in sel:
+            shutil.copy(os.path.join(data, r.split("|")[0]), d)
+        with open(os.path.join(d, "train.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(sel) + "\n")
+        dirs.append(d)
+    return dirs
+
+
+def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
     """Tacotron training on the card: (c) both_r2 resumed through the
     train_tacotron CLI, its loss against seeded weights'; then, side by
     side (their walls alone are reported), the run resumed again, (e) a
@@ -1781,18 +1834,6 @@ def taco_train_phases(dev, smi, tmp, data: str) -> dict:
         cfg.tacotron, compute_dtype="float32"))
     vocab = TextCodec(cfg.tacotron.cleaners).vocab_size
     out = {"card": smi}
-
-    dirs = []
-    for i, mine in enumerate((lambda f: not f.startswith("NB"),
-                              lambda f: f.startswith("NB"))):
-        d = os.path.join(tmp, f"taco_speaker{i}")
-        os.makedirs(d)
-        sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
-        for r in sel:
-            shutil.copy(os.path.join(data, r.split("|")[0]), d)
-        with open(os.path.join(d, "train.txt"), "w", encoding="utf-8") as f:
-            f.write("\n".join(sel) + "\n")
-        dirs.append(d)
     paths = ",".join(dirs)
     corpus_batch = batch_to_device(next(iter(TacotronBatcher(dirs, cfg))),
                                    dev, cfg.train.transfer_dtype)
@@ -2035,6 +2076,15 @@ def taco_train_phases(dev, smi, tmp, data: str) -> dict:
         class WithCudnn(TacotronTask):
             def _precision(self):
                 return no_tf32()
+
+        class WithoutOneDNN(TacotronTask):
+            """The CPU's convolutions without oneDNN: another summation
+            order on the same device."""
+            def _precision(self):
+                stack = super()._precision()
+                stack.enter_context(torch.backends.mkldnn.flags(
+                    enabled=False))
+                return stack
         cfg0 = dataclasses.replace(cfg32, tacotron=dataclasses.replace(
             cfg32.tacotron, dropout_prob=0.0))
         rng = np.random.RandomState(0)
@@ -2046,6 +2096,7 @@ def taco_train_phases(dev, smi, tmp, data: str) -> dict:
                "speaker_id": np.array([0, 1])}
         grads = {}
         for name, cls, d in (("cpu", TacotronTask, cpu),
+                             ("cpu_without_onednn", WithoutOneDNN, cpu),
                              ("card", TacotronTask, dev),
                              ("card_cudnn", WithCudnn, dev)):
             t = cls(cfg0, vocab, True, d)
@@ -2057,15 +2108,18 @@ def taco_train_phases(dev, smi, tmp, data: str) -> dict:
         norm = sum(float((g ** 2).sum()) for g in grads["cpu"].values())
         dist = {name: (sum(float(((grads[name][k] - g) ** 2).sum())
                            for k, g in grads["cpu"].items()) / norm) ** 0.5
-                for name in ("card", "card_cudnn")}
+                for name in ("card", "card_cudnn", "cpu_without_onednn")}
         log(f"  seeded gradient (B=2, T_out 50), card vs CPU in the L2 "
             f"norm: the task's (no cuDNN) {dist['card']:.3e} (bound "
             f"{TACO_GRAD_TOL:g}); with cuDNN's convolutions "
-            f"{dist['card_cudnn']:.3e} [{smi}]")
+            f"{dist['card_cudnn']:.3e}; the CPU's own with oneDNN's "
+            f"convolutions off {dist['cpu_without_onednn']:.3e} [{smi}]")
         if not dist["card"] <= TACO_GRAD_TOL:
             raise AssertionError("the card's gradient differs from the CPU's")
         out["card_vs_cpu"]["seeded_grad_l2"] = dist["card"]
         out["card_vs_cpu"]["seeded_grad_l2_with_cudnn"] = dist["card_cudnn"]
+        out["card_vs_cpu"]["seeded_grad_l2_cpu_without_onednn"] = dist[
+            "cpu_without_onednn"]
         del grads
         trained = map_tensors(trained, lambda x: x.to(dev))
         out["trained_loss"] = corpus_loss(TacotronTask(cfg, vocab, True,
@@ -2130,6 +2184,239 @@ def taco_train_phases(dev, smi, tmp, data: str) -> dict:
                     raise AssertionError(f"{key}: loss not finite")
                 del task, state, m, holder
         out["step_time"] = timing
+    return out
+
+
+def attention_phases(dev, smi, tmp, dirs: list) -> dict:
+    """Every attention type, and simple speakers, at the both_r2 width
+    (seeded weights): (a) served and timed on the card, (b) the decode
+    and (c) a training step's gradient, card against CPU, for each; (d)
+    train_tacotron --model_type simple from seeded weights on ``dirs``,
+    served through the tts CLI (one kernel launch, counted).  Returns the
+    ``attention`` line, with the serving launches under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        seeded_tacotron_params)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.models.attention import (
+        ATTENTION_TYPES)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
+        Synthesizer)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device)
+
+    cpu = torch.device("cpu")
+    base = C.load_config(WN_MOON)
+    iters = ATT_SERVE_STEPS
+    out = {"card": smi, "types": {}}
+    for name in ATTENTION_TYPES + ("simple",):
+        t16 = (dataclasses.replace(C.BOTH_R2, model_type="simple")
+               if name == "simple" else
+               dataclasses.replace(C.BOTH_R2, attention_type=name))
+        t32 = dataclasses.replace(t16, compute_dtype="float32")
+        cfg = dataclasses.replace(base, tacotron=t16)
+        cfg32 = dataclasses.replace(base, tacotron=t32)
+        params = seeded_tacotron_params(t16, seed=0, audio=cfg.audio)
+        row = out["types"][name] = {}
+        with phase(f"attention {name} (a): served on the card, B=4 bf16, "
+                   f"{iters} steps, prenet dropout; timed"), torch.no_grad():
+            synth = Synthesizer(cfg, params, device=dev)
+            mech = type(synth.model.decoder.step.attention).__name__
+            inputs, lengths = synth._prepare_inputs(TEXTS)
+            res = synth.synthesize(TEXTS, speaker_ids=SPEAKERS,
+                                   max_iters=iters, rng_seed=0)
+            masked = max(float(x["alignment"][int(n):].max(initial=0.0))
+                         for x, n in zip(res, lengths))
+            finite = all(np.isfinite(x["mel"]).all() and np.isfinite(
+                x["alignment"]).all() for x in res)
+            frames = [x["mel"].shape[0] for x in res]
+            log(f"  {mech}: kept frames {frames}; padded positions' "
+                f"largest alignment {masked:.2e} (bound {ATT_MASKED_TOL:g})")
+            if not finite or masked >= ATT_MASKED_TOL:
+                raise AssertionError(f"{name}: served decode not finite or "
+                                     "attends to padding")
+            model = synth.model
+            x = torch.from_numpy(inputs).long().to(dev)
+            ln = torch.from_numpy(lengths).long().to(dev)
+            sp = torch.from_numpy(np.asarray(SPEAKERS)).to(dev)
+            g = torch.Generator(dev).manual_seed(0)
+            enc = model.encode(x, ln, sp)
+            masks = model.draw_prenet_masks(iters, len(TEXTS), g)
+            loop = lambda: model.decoder(enc, iters, masks)
+            loop()
+            reps = sorted(cuda_ms(loop) / iters for _ in range(ATT_REPS))
+            count = decoder_launches(model, enc, masks, 20)
+            row.update(mechanism=mech, masked_max=masked,
+                       ms_per_step_min=reps[0],
+                       ms_per_step_median=reps[len(reps) // 2],
+                       ms_per_step_max=reps[-1], **count)
+            log(f"  decoder loop {reps[0]:.3f} / {reps[len(reps) // 2]:.3f} "
+                f"/ {reps[-1]:.3f} ms per step (min / median / max of "
+                f"{ATT_REPS}); CUDA kernels per step "
+                f"{count['kernels_per_step'] or 'not measured'} "
+                f"({count['launch_calls_per_step']} launch calls), device "
+                f"{count['device_us_per_step'] or 'not measured'} us per "
+                f"step [{smi}]")
+            del synth, model, enc, masks
+
+        with phase(f"attention {name} (b): deterministic decode, card vs "
+                   f"CPU, B={ATT_CMP_B}, {ATT_CMP_STEPS} steps, f32 and "
+                   f"bf16"), torch.no_grad():
+            B = ATT_CMP_B
+            run = {}
+            for c in (cfg32, cfg):
+                for d in (dev, cpu):
+                    m = Synthesizer(c, params, device=d).model
+                    o = m(torch.from_numpy(inputs[:B]).long().to(d),
+                          torch.from_numpy(lengths[:B]).long().to(d),
+                          torch.from_numpy(np.asarray(SPEAKERS[:B])).to(d),
+                          max_iters=ATT_CMP_STEPS)
+                    run[c.tacotron.compute_dtype, d.type] = {
+                        k: v.float().cpu().numpy() for k, v in o.items()}
+            if any(not np.isfinite(v).all() for o in run.values()
+                   for v in o.values()):
+                raise AssertionError(f"{name}: decode not finite")
+            card, ref = run["float32", dev.type], run["float32", "cpu"]
+            errs, bf16 = {}, {}
+            for k in ref:
+                scale = max(1.0, float(np.abs(
+                    ref["alignments" if k == "alignments"
+                        else "mel_outputs"]).max()))
+                errs[k] = float(np.abs(card[k] - ref[k]).max()) / scale
+                d_card = float(np.abs(run["bfloat16", dev.type][k]
+                                      - run["bfloat16", "cpu"][k]).mean())
+                d_noise = float(np.abs(run["bfloat16", "cpu"][k]
+                                       - ref[k]).mean())
+                bf16[k] = {"card_vs_cpu": d_card, "cpu_bf16_vs_f32": d_noise}
+            log(f"  f32 card vs CPU, of the largest |value|: {errs} (bound "
+                f"{ATT_F32_TOL:g}); bf16 mean abs card vs CPU / CPU bf16 vs "
+                f"f32: " + ", ".join(
+                    f"{k} {v['card_vs_cpu']:.3e} / {v['cpu_bf16_vs_f32']:.3e}"
+                    for k, v in bf16.items())
+                + f" (bound {TACO_BF16_RATIO:g}x) [{smi}]")
+            if max(errs.values()) > ATT_F32_TOL:
+                raise AssertionError(f"{name}: the card's f32 decode "
+                                     "differs from the CPU's")
+            if any(not v["cpu_bf16_vs_f32"] > 0 or v["card_vs_cpu"]
+                   > TACO_BF16_RATIO * v["cpu_bf16_vs_f32"]
+                   for v in bf16.values()):
+                raise AssertionError(f"{name}: the card's bf16 decode is "
+                                     "farther from the CPU's than bf16 "
+                                     "rounding")
+            row.update(decode_f32_err=errs, decode_bf16=bf16)
+
+        with phase(f"attention {name} (c): one f32 training step's "
+                   f"gradient, card vs CPU, B={ATT_CMP_B}, T_out "
+                   f"{ATT_GRAD_T_OUT}, the same dropout masks"):
+            rng = np.random.RandomState(0)
+            syn = {"inputs": inputs[:ATT_CMP_B],
+                   "input_lengths": lengths[:ATT_CMP_B],
+                   "loss_coeff": np.ones(ATT_CMP_B, np.float32),
+                   "mel_targets": rng.randn(ATT_CMP_B, ATT_GRAD_T_OUT,
+                                            cfg.audio.num_mels),
+                   "linear_targets": rng.randn(ATT_CMP_B, ATT_GRAD_T_OUT,
+                                               cfg.audio.num_freq),
+                   "speaker_id": np.asarray(SPEAKERS[:ATT_CMP_B])}
+            task = TacotronTask(cfg32, is_randomly_initialized=True,
+                                device=cpu)
+            st = task.init_state(0)
+            b = batch_to_device(syn, cpu, base.train.transfer_dtype)
+            draws = task.draw(b, torch.Generator().manual_seed(0), st.step)
+
+            def grads(t, *args) -> tuple:
+                losses, g, _ = t.grads(*args)
+                return float(losses["loss"]), {k: v.double().cpu()
+                                               for k, v in g.items()}
+            l_cpu, g_cpu = grads(task, st.params, st.batch_stats, b, draws)
+            # How far the CPU's own gradient moves when its convolutions
+            # sum in another order (oneDNN's off): printed, not bounded.
+            with torch.backends.mkldnn.flags(enabled=False):
+                _, g_own = grads(task, st.params, st.batch_stats, b, draws)
+            mv = lambda v: v.to(dev)
+            l_card, g_card = grads(
+                TacotronTask(cfg32, is_randomly_initialized=True, device=dev),
+                *map_tensors((st.params, st.batch_stats, b, draws), mv))
+            norm = sum(float((v ** 2).sum()) for v in g_cpu.values())
+            dist = lambda g: (sum(float(((g[k] - v) ** 2).sum())
+                                  for k, v in g_cpu.items()) / norm) ** 0.5
+            l2, own = dist(g_card), dist(g_own)
+            bound = ATT_GMM_GRAD_TOL if name == "gmm" else TACO_GRAD_TOL
+            loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+            log(f"  loss card {l_card:.6f} CPU {l_cpu:.6f} ({loss_rel:.2e} "
+                f"relative, bound {TACO_LOSS_TOL:g}); gradient card vs CPU "
+                f"in the L2 norm {l2:.3e} (bound {bound:g}); the CPU's own "
+                f"with oneDNN's convolutions off {own:.3e} [{smi}]")
+            if not (np.isfinite(l_card) and loss_rel <= TACO_LOSS_TOL
+                    and l2 <= bound):
+                raise AssertionError(f"{name}: the card's gradient differs "
+                                     "from the CPU's")
+            row.update(grad_loss_rel=loss_rel, grad_l2=l2, grad_l2_bound=bound,
+                       grad_l2_cpu_without_onednn=own)
+            del task, st, g_card, g_cpu, g_own
+
+    run = os.path.join(tmp, "simple_run")
+    served = os.path.join(tmp, "simple_served")
+    with phase(f"attention simple (d): train_tacotron --model_type simple "
+               f"from seeded weights, {ATT_CLI_STEPS} steps; the tts CLI "
+               f"serves it with trained wn_moon, speakers 0 and 1, one "
+               f"kernel launch"):
+        rc, text, secs = run_cli("train_tacotron", [
+            "--data_paths", ",".join(dirs), "--log_dir", run, "--model_type",
+            "simple", "--skip_path_filter", "--num_steps", str(ATT_CLI_STEPS),
+            "--hparams", ATT_CLI_HPARAMS, *TACO_CLI_ARGS], dev)
+        require_rc0("train_tacotron --model_type simple", rc, text)
+        s_cfg = C.load_config(run)
+        rows = read_metrics(run)
+        vals = [r[k] for r in rows for k in ("loss", "test_loss") if k in r]
+        with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+            lines = step_lines(f.read())
+        log(f"  rc 0 in {secs:.1f} s wall; model_type "
+            f"{s_cfg.tacotron.model_type}, {s_cfg.tacotron.num_speakers} "
+            f"speakers, {s_cfg.tacotron.compute_dtype}; Step lines {lines}; "
+            f"losses {vals} [{smi}]")
+        if not (s_cfg.tacotron.model_type == "simple"
+                and s_cfg.tacotron.num_speakers == 2 and vals and lines
+                and np.isfinite(vals).all() and os.path.isdir(
+                    os.path.join(run, "ckpt", str(ATT_CLI_STEPS)))):
+            raise AssertionError(f"the simple run is wrong:\n"
+                                 f"{text[-4000:]}")
+        out["simple_cli"] = {"wall_s": secs, "losses": vals,
+                             "sec_per_step_window": lines[-1][1]}
+        script = (
+            "import json, sys\n"
+            f"from {PKG} import tts\n"
+            f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
+            "tts.main(sys.argv[1:])\n"
+            "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
+        extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", script, "--tacotron", run, "--wavenet",
+             WN_MOON, "--text", TEXT0, "--speaker_id", "0", "--text", TEXT0,
+             "--speaker_id", "1", "--out_dir", served, *extra], cwd=REPO,
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        require_rc0("tts (the simple run)", proc.returncode,
+                    proc.stdout + proc.stderr)
+        launches = json.loads([ln for ln in proc.stdout.splitlines()
+                               if ln.startswith("{")][-1])
+        mels = [np.load(os.path.join(served, f"{i}.mel.npy"))
+                for i in range(2)]
+        wavs = [load_wav(os.path.join(served, f"{i}.wavenet.wav"),
+                         cfg.audio.sample_rate) for i in range(2)]
+        log(f"  tts rc 0 in {secs:.1f} s wall; launches {launches}; mels "
+            f"{[m.shape for m in mels]}, wavs {[len(w) for w in wavs]} "
+            f"samples, peaks {[float(np.abs(w).max()) for w in wavs]}")
+        if not all(np.isfinite(m).all() and m.ndim == 2 and len(w)
+                   and np.isfinite(w).all() and np.abs(w).max() <= 1
+                   for m, w in zip(mels, wavs)):
+            raise AssertionError("the simple run's served mel or wav is "
+                                 "wrong")
+        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+            raise AssertionError(f"tts launched {launches}")
+        out["simple_cli"]["serve_wall_s"] = secs
+        out["launches"] = launches
     return out
 
 
@@ -2371,7 +2658,7 @@ def main() -> int:
     with phase("MoL head, f32: kernel vs plain twin, full width, B=4"), \
             torch.no_grad():
         packed = packs["mol-float32"]
-        B, T = 4, 2048
+        B, T = 4, 1024
         proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 1)
         k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
@@ -2380,7 +2667,7 @@ def main() -> int:
                            prime_len=T)
         torch.cuda.synchronize()
         errors["mol-float32"].append(compare(
-            "(a) deterministic, teacher-forced 2048", k, p))
+            f"(a) deterministic, teacher-forced {T}", k, p))
 
         proj_b = proj[:, :256].contiguous()
         k = wavenet_generate(packed, proj_b, deterministic=True)
@@ -2397,9 +2684,9 @@ def main() -> int:
         p = generate_plain(packed, proj, noise=noise, primed=primed,
                            prime_len=T)
         errors["mol-float32"].append(compare(
-            "(c) stochastic, same noise, teacher-forced 2048", k, p))
+            f"(c) stochastic, same noise, teacher-forced {T}", k, p))
 
-        B, T = 8, 4096
+        B, T = 8, 2048
         proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 3)
         k = wavenet_generate(packed, proj,
@@ -2410,7 +2697,7 @@ def main() -> int:
                            primed=primed, prime_len=T)
         ks = ks_statistic(k.cpu().numpy().ravel(), p.cpu().numpy().ravel())
         bound = KS_ALPHA_COEF * np.sqrt(2.0 / k.numel())
-        log(f"  (d) Philox vs torch.Generator, 8 x 4096 teacher-forced: "
+        log(f"  (d) Philox vs torch.Generator, {B} x {T} teacher-forced: "
             f"KS={ks:.4f} (bound {bound:.4f}), std kernel "
             f"{float(k.std()):.4f} plain {float(p.std()):.4f}")
         if not ks < bound:
@@ -2450,7 +2737,7 @@ def main() -> int:
         errors["softmax-float32"].append(err)
         agreement["softmax-float32"] = min(agree_a, agree_c)
 
-        B, T = 8, 4096
+        B, T = 8, 2048
         proj = lc_proj_for("softmax-float32", B, T)
         primed = prime_classes(B, T, 13)
         k = wavenet_generate(packed, proj,
@@ -2461,7 +2748,7 @@ def main() -> int:
                            primed=primed, prime_len=T)
         stat, dof, bound = chi2_two_sample(k.cpu().numpy().ravel(),
                                            p.cpu().numpy().ravel(), Q)
-        log(f"  (d) Philox vs torch.Generator, 8 x 4096 classes "
+        log(f"  (d) Philox vs torch.Generator, {B} x {T} classes "
             f"teacher-forced: chi2={stat:.1f} on {dof} dof (bound {bound:.1f}"
             f" at alpha={ALPHA}); distinct classes kernel "
             f"{len(torch.unique(k))} plain {len(torch.unique(p))}")
@@ -2676,12 +2963,15 @@ def main() -> int:
         data = data_phases(dev, smi, tmp, corpus,
                            train["step_time"]["float32"]["ms_median"],
                            train["seeded_eval_loss"])
-        taco_train = taco_train_phases(dev, smi, tmp, corpus)
+        dirs = taco_speaker_dirs(tmp, corpus)
+        taco_train = taco_train_phases(dev, smi, tmp, dirs)
+        attention = attention_phases(dev, smi, tmp, dirs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     data["preprocess"] = preprocess
     cli_launches = data.pop("launches")
     taco_cli_launches = taco_train.pop("launches")
+    simple_cli_launches = attention.pop("launches")
 
     kernels = []
     for v, t in timing.items():
@@ -2715,6 +3005,8 @@ def main() -> int:
             entry["launches_train_cli"] = cli_launches[v]
         if v in taco_cli_launches:
             entry["launches_tacotron_train_cli"] = taco_cli_launches[v]
+        if v in simple_cli_launches:
+            entry["launches_simple_cli"] = simple_cli_launches[v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -2727,6 +3019,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
     print(json.dumps({"taco_train": taco_train}))
+    print(json.dumps({"attention": attention}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -452,7 +452,8 @@ def tacotron_skeleton(cfg: TacotronConfig, audio: Optional[AudioConfig] = None,
 
 def tacotron_scopes(model: Tacotron) -> Dict[str, str]:
     """flax names the decoder's mechanism by its class: ``attention`` is
-    ``BahdanauMonotonicAttention_0`` inside ``decoder/step``."""
+    ``{class name}_0`` inside ``decoder/step`` (``LocationSensitiveAttention_0``
+    for ``loc_sen``, and so on)."""
     mech = type(model.decoder.step.attention).__name__
     return {"decoder/step/attention": f"decoder/step/{mech}_0"}
 
@@ -541,9 +542,10 @@ def seeded_tacotron_tree(cfg: TacotronConfig, seed: int,
     ``/``-joined dicts, drawn with numpy from ``seed`` at flax's init
     scales: lecun-normal Dense and conv kernels and fused ``w_ih``,
     orthogonal ``w_hh`` per [H, H] gate block, truncated-normal (std 0.5)
-    embeddings, glorot-uniform attention ``v``, ``g`` = sqrt(1 / units),
-    zero biases but the highways' T-gate bias of -1, BatchNorm scale 1,
-    running mean 0 and variance 1."""
+    embeddings, glorot-uniform attention ``v`` (``attention_variable``
+    too), ``g`` = sqrt(1 / units) (Luong's scale ``g`` = 1), zero biases
+    (the alignment and score biases too) but the highways' T-gate bias of
+    -1, BatchNorm scale 1, running mean 0 and variance 1."""
     rng = np.random.default_rng(seed)
     model = tacotron_skeleton(cfg, audio, vocab_size)
     scopes = tacotron_scopes(model)
@@ -568,11 +570,12 @@ def seeded_tacotron_tree(cfg: TacotronConfig, seed: int,
                                axis=1)
         elif leaf == "scale":
             v = np.ones(shape)
-        elif leaf == "attention_v":
+        elif leaf in ("attention_v", "attention_variable"):
             lim = np.sqrt(6.0 / (shape[0] + shape[1]))
             v = rng.uniform(-lim, lim, shape)
         elif leaf == "attention_g":
-            v = np.asarray(np.sqrt(1.0 / cfg.attention_size))
+            v = np.asarray(1.0 if "/LuongAttention_0/" in name
+                           else np.sqrt(1.0 / cfg.attention_size))
         elif name.endswith("/T/bias"):
             v = np.full(shape, -1.0)
         else:                             # biases, b_ih, b_hn, score_bias

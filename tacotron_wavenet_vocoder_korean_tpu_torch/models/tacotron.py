@@ -28,9 +28,14 @@ from a ``torch.Generator``.  Under autograd the decoder casts its bf16
 weights per step, so their gradients accumulate in float32 as JAX's scan
 accumulates them; serving casts them once (``cast_for_loop``).
 
-Multi-speaker conditioning is the ``deepvoice`` mode (soft-sign speaker
-projections into the encoder's residual and every recurrent initial
-state).
+The mechanism is any of the JAX table's nine (``models/attention.py``);
+what it can hoist out of the loop (``loop_constants``) is computed once
+per decode.  With several speakers, conditioning is the ``deepvoice``
+mode (soft-sign speaker projections into the encoder's residual and
+every recurrent initial state) or the ``simple`` one (the speaker's
+embedding, in the compute type, concatenated into the attention GRU's
+input, the decoder's input projection and, ahead of the post-net's
+output, the linear projection); with one speaker nothing conditions.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ class DecoderCarry(NamedTuple):
     attn_cell: torch.Tensor                # attention GRU state  [B, A]
     context: torch.Tensor                  # attention context    [B, E]
     attn_state: torch.Tensor               # mechanism state      [B, T_in]
+                                           # (GMM: kappa [B, U])
     dec_cells: Tuple[torch.Tensor, ...]    # residual GRU states  [B, D]
     prev_frame: torch.Tensor               # last emitted frame   [B, M]
 
@@ -60,17 +66,20 @@ class Encoded(NamedTuple):
     keys: torch.Tensor                     # [B, T_in, attention_size] f32
     values: torch.Tensor                   # [B, T_in, E], padding zeroed
     mask: torch.Tensor                     # [B, T_in] bool
-    init_states: Optional[Dict[str, object]]
+    init_states: Optional[Dict[str, object]]   # deepvoice
+    speaker_embed: Optional[torch.Tensor]  # simple: [B, S] f32
 
 
 class DecoderStep(nn.Module):
-    """One decoder step: prenet -> attention GRU on [prenet, context] ->
-    mechanism (-> manual alignments where asked) -> float32 context ->
-    ``decoder_input_projection`` -> residual GRUs -> ``frame_projection``;
-    the block's last frame feeds the next step."""
+    """One decoder step: prenet -> attention GRU on [prenet, (speaker,)
+    context] -> mechanism (-> manual alignments where asked) -> float32
+    context -> ``decoder_input_projection`` of [GRU output, context,
+    (speaker)] -> residual GRUs -> ``frame_projection``; the block's last
+    frame feeds the next step.  ``speaker_dim``: the ``simple`` mode's
+    embedding width (0 without it)."""
 
     def __init__(self, cfg: TacotronConfig, num_mels: int, enc_dim: int,
-                 dtype=None):
+                 dtype=None, speaker_dim: int = 0):
         super().__init__()
         self.dtype = dtype
         self.num_mels = num_mels
@@ -78,12 +87,13 @@ class DecoderStep(nn.Module):
         self.decoder_prenet = Prenet(num_mels, cfg.dec_prenet_sizes,
                                      cfg.dropout_prob, dtype)
         self.attention_gru = FusedGRUCell(
-            cfg.dec_prenet_sizes[-1] + enc_dim, cfg.attention_state_size,
-            dtype)
+            cfg.dec_prenet_sizes[-1] + speaker_dim + enc_dim,
+            cfg.attention_state_size, dtype)
         self.attention = make_attention(
             cfg.attention_type, cfg.attention_state_size, cfg.attention_size)
         self.decoder_input_projection = nn.Linear(
-            cfg.attention_state_size + enc_dim, cfg.dec_rnn_size)
+            cfg.attention_state_size + enc_dim + speaker_dim,
+            cfg.dec_rnn_size)
         for i in range(cfg.dec_layer_num):
             self.add_module(f"decoder_gru_{i + 1}", FusedGRUCell(
                 cfg.dec_rnn_size, cfg.dec_rnn_size, dtype))
@@ -91,12 +101,14 @@ class DecoderStep(nn.Module):
             cfg.dec_rnn_size, cfg.reduction_factor * num_mels)
 
     def forward(self, carry: DecoderCarry, keys, values_f32, mask,
-                score_vector, prenet_scales=None, manual_alignment=None,
-                teacher_frame=None, take_teacher=None
+                consts, prenet_scales=None, manual_alignment=None,
+                teacher_frame=None, take_teacher=None, speaker=None
                 ) -> Tuple[DecoderCarry, torch.Tensor, torch.Tensor]:
-        """``teacher_frame`` [B, M]: fed in place of the last emitted
+        """``consts``: the mechanism's ``loop_constants(keys)``.
+        ``teacher_frame`` [B, M]: fed in place of the last emitted
         frame, where ``take_teacher`` [B] (bool) is set, or everywhere
-        when it is None."""
+        when it is None.  ``speaker`` [B, S]: the ``simple`` mode's
+        embedding in the compute type, or None."""
         dt = compute_dtype(self.dtype)
         frame_in = carry.prev_frame
         if teacher_frame is not None:
@@ -104,15 +116,16 @@ class DecoderStep(nn.Module):
                         torch.where(take_teacher[:, None], teacher_frame,
                                     carry.prev_frame))
         x = self.decoder_prenet(frame_in, prenet_scales)
+        spk = [] if speaker is None else [speaker]
         attn_cell = self.attention_gru(
-            carry.attn_cell, torch.cat([x, carry.context], dim=-1))
+            carry.attn_cell, torch.cat([x, *spk, carry.context], dim=-1))
         alignments, next_attn_state = self.attention(
-            attn_cell, carry.attn_state, keys, mask, score_vector)
+            attn_cell, carry.attn_state, keys, mask, consts)
         if manual_alignment is not None:
             alignments = manual_alignment
         context = torch.bmm(alignments[:, None, :], values_f32)[:, 0].to(dt)
         h = dense(self.decoder_input_projection,
-                  torch.cat([attn_cell, context], dim=-1), self.dtype)
+                  torch.cat([attn_cell, context, *spk], dim=-1), self.dtype)
         dec_cells = []
         for i in range(self.dec_layer_num):
             cell = getattr(self, f"decoder_gru_{i + 1}")(carry.dec_cells[i], h)
@@ -142,12 +155,12 @@ class Decoder(nn.Module):
     compute type) and [B, T_in, T_dec] float32 alignments."""
 
     def __init__(self, cfg: TacotronConfig, num_mels: int, enc_dim: int,
-                 dtype=None):
+                 dtype=None, speaker_dim: int = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.num_mels = num_mels
-        self.step = DecoderStep(cfg, num_mels, enc_dim, dtype)
+        self.step = DecoderStep(cfg, num_mels, enc_dim, dtype, speaker_dim)
 
     def initial_carry(self, enc: Encoded) -> DecoderCarry:
         cfg = self.cfg
@@ -188,22 +201,25 @@ class Decoder(nn.Module):
         # weight gradient is cast back to float32 before it accumulates.
         step = (self.step if torch.is_grad_enabled()
                 else self.step.cast_for_loop())
+        dt = compute_dtype(self.dtype)
         carry = self.initial_carry(enc)
         values_f32 = enc.values.float()
-        score_vector = step.attention.score_vector()
+        consts = step.attention.loop_constants(enc.keys)
+        speaker = (None if enc.speaker_embed is None
+                   else enc.speaker_embed.to(dt))
         scales = (None if prenet_masks is None
                   else step.decoder_prenet.scales_from_masks(prenet_masks))
         if teacher is not None:
-            teacher = teacher.to(compute_dtype(self.dtype))
+            teacher = teacher.to(dt)
         frames, alignments = [], []
         for t in range(max_steps):
             carry, f, a = step(
-                carry, enc.keys, values_f32, enc.mask, score_vector,
+                carry, enc.keys, values_f32, enc.mask, consts,
                 None if scales is None else [s[t] for s in scales],
                 None if manual_alignments is None
                 else manual_alignments[:, t],
                 None if teacher is None else teacher[t],
-                None if use_teacher is None else use_teacher[t])
+                None if use_teacher is None else use_teacher[t], speaker)
             frames.append(f)
             alignments.append(a)
         B = enc.values.shape[0]
@@ -225,15 +241,17 @@ class Tacotron(nn.Module):
         dt = self.dtype
         self.char_embedding = nn.Parameter(
             torch.randn(vocab_size, cfg.embedding_size) * 0.5)
-        self.deepvoice = cfg.num_speakers > 1
-        if self.deepvoice:
-            if cfg.model_type != "deepvoice":
-                raise NotImplementedError(
-                    f"model_type {cfg.model_type!r} with several speakers is "
-                    "not ported yet; only 'deepvoice' is")
-            S = cfg.speaker_embedding_size
+        # The speaker mode: None with one speaker, else the model_type.
+        self.speaker_mode = None
+        S = cfg.speaker_embedding_size
+        if cfg.num_speakers > 1:
+            if cfg.model_type not in ("deepvoice", "simple"):
+                raise ValueError(f"bad model_type {cfg.model_type!r} for "
+                                 "multi-speaker")
+            self.speaker_mode = cfg.model_type
             self.speaker_embedding = nn.Parameter(
                 torch.randn(cfg.num_speakers, S) * 0.5)
+        if self.speaker_mode == "deepvoice":
             self.sp_before_highway = nn.Linear(S, cfg.enc_prenet_sizes[-1])
             self.sp_encoder_rnn_init = nn.Linear(S, 2 * cfg.enc_rnn_size)
             self.sp_attention_rnn_init = nn.Linear(S, cfg.attention_state_size)
@@ -248,13 +266,14 @@ class Tacotron(nn.Module):
             cfg.enc_highway_depth, cfg.enc_rnn_size, cfg.enc_proj_sizes,
             cfg.enc_proj_width, dt)
         enc_dim = 2 * cfg.enc_rnn_size
+        simple_dim = S if self.speaker_mode == "simple" else 0
         self.memory_layer = nn.Linear(enc_dim, cfg.attention_size, bias=False)
-        self.decoder = Decoder(cfg, audio.num_mels, enc_dim, dt)
+        self.decoder = Decoder(cfg, audio.num_mels, enc_dim, dt, simple_dim)
         self.post_cbhg = CBHG(
             audio.num_mels, cfg.post_bank_size, cfg.post_bank_channel_size,
             cfg.post_maxpool_width, cfg.post_highway_depth, cfg.post_rnn_size,
             cfg.post_proj_sizes, cfg.post_proj_width, dt)
-        self.linear_projection = nn.Linear(2 * cfg.post_rnn_size,
+        self.linear_projection = nn.Linear(simple_dim + 2 * cfg.post_rnn_size,
                                            audio.num_freq)
 
     def encode(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
@@ -269,10 +288,12 @@ class Tacotron(nn.Module):
         table = torch.cat([torch.zeros_like(self.char_embedding[:1]),
                            self.char_embedding[1:]])   # PAD row zeroed
         char_embedded = table[inputs]
-        before_highway = enc_init = init_states = None
-        if self.deepvoice:
+        before_highway = enc_init = init_states = simple = None
+        if self.speaker_mode is not None:
             spk = self.speaker_embedding[speaker_id]
-
+        if self.speaker_mode == "simple":
+            simple = spk
+        elif self.speaker_mode == "deepvoice":
             def deep_dense(layer):
                 return F.softsign(dense(layer, spk))
             before_highway = deep_dense(self.sp_before_highway)
@@ -295,12 +316,20 @@ class Tacotron(nn.Module):
                 < input_lengths[:, None])
         values = encoder_outputs * mask[..., None]
         keys = dense(self.memory_layer, values)           # float32
-        return Encoded(keys, values, mask, init_states)
+        return Encoded(keys, values, mask, init_states, simple)
 
     def postnet(self, mel: torch.Tensor, train: bool = False,
-                bn_updates: Optional[BNUpdates] = None) -> torch.Tensor:
-        """mel [B, T, M] (compute type) -> linear [B, T, num_freq]."""
+                bn_updates: Optional[BNUpdates] = None,
+                speaker_embed: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """mel [B, T, M] (compute type) -> linear [B, T, num_freq];
+        ``speaker_embed`` [B, S] (the ``simple`` mode) is tiled over time
+        ahead of the post-net's output."""
         post = self.post_cbhg(mel, train=train, bn_updates=bn_updates)
+        if speaker_embed is not None:
+            B, T, _ = post.shape
+            tiled = speaker_embed[:, None, :].to(post.dtype).expand(B, T, -1)
+            post = torch.cat([tiled, post], dim=-1)
         return dense(self.linear_projection, post, self.dtype)
 
     def draw_prenet_masks(self, max_iters: int, batch: int,
@@ -384,7 +413,7 @@ class Tacotron(nn.Module):
         mel, alignments = self.decoder(
             enc, max_steps, prenet_masks, manual_alignments, teacher,
             None if teacher is None else use_teacher)
-        linear = self.postnet(mel, train, bn_updates)
+        linear = self.postnet(mel, train, bn_updates, enc.speaker_embed)
         return {"mel_outputs": mel.float(),
                 "linear_outputs": linear.float(),
                 "alignments": alignments.float()}

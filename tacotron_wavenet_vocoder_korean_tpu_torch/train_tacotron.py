@@ -17,8 +17,10 @@ first test example at every test interval, and ``best/`` with
 ``touch LOG_DIR/STOP`` saves and ends the run at the next sync boundary;
 a loss above ``train.loss_explosion_threshold`` or NaN raises.  Runs on
 the GPU unless ``--device cpu`` is given; with no GPU and no ``--device
-cpu`` it raises.  ``--use_mesh`` and ``--model_type simple`` raise: they
-are not ported yet.
+cpu`` it raises.  ``--model_type`` picks the speaker mode with several
+dirs (``deepvoice`` or ``simple``); the config's ``attention_type`` (any
+of the nine, by ``--hparams tacotron.attention_type=loc_sen``) picks the
+mechanism.  ``--use_mesh`` raises: it is not ported yet.
 """
 from __future__ import annotations
 
@@ -121,10 +123,6 @@ def train(args) -> None:
         cfg = overlay(cfg, train={"skip_path_filter": True})
     if args.hparams:
         cfg = overlay_from_strings(cfg, split_overrides(args.hparams))
-    if cfg.tacotron.model_type == "simple" and num_speakers > 1:
-        raise NotImplementedError(
-            "model_type 'simple' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 4)")
 
     log_dir = args.log_dir or os.path.join(
         "logs", datetime.now().strftime("tacotron_%Y-%m-%d_%H-%M-%S"))

@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA generation kernel against its plain twin on the
 card (tests marked ``cuda``; they skip without a GPU), the Tacotron decode
-and a Tacotron training step on the card against the same on the CPU, and
+and a Tacotron training step on the card against the same on the CPU
+(also with each attention mechanism and simple speakers), and
 the twin at the
 kernel's own widths (R = D = 32) against the JAX scan sampler where JAX is
 installed.
@@ -19,6 +20,8 @@ import torch
 from tacotron_wavenet_vocoder_korean_tpu_torch import convert
 from tacotron_wavenet_vocoder_korean_tpu_torch.config import (
     BOTH_R2, AudioConfig, Config, WaveNetConfig)
+from tacotron_wavenet_vocoder_korean_tpu_torch.models.attention import (
+    ATTENTION_TYPES)
 from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
 from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
     WaveNetGenerator)
@@ -209,6 +212,33 @@ TACO_F32 = Config(tacotron=dataclasses.replace(
 TEXTS = ["존경하는 국민 여러분", "KIA 3대가 12시에 왔다"]
 
 
+# The other mechanisms, and bah_mon_norm with simple speakers (deepvoice
+# bah_mon_norm: the tests above and below).
+OTHER_CONFIGS = tuple(n for n in ATTENTION_TYPES if n != "bah_mon_norm") + (
+    "simple",)
+
+
+def _taco_config(name: str, **kw) -> Config:
+    """both_r2 widths, f32, dropout off, with ``name``'s mechanism; for
+    ``simple``, bah_mon_norm with simple speakers."""
+    t = dataclasses.replace(BOTH_R2, compute_dtype="float32",
+                            dec_prenet_dropout_inference=False, **kw)
+    t = (dataclasses.replace(t, model_type="simple") if name == "simple"
+         else dataclasses.replace(t, attention_type=name))
+    return Config(tacotron=t)
+
+
+def _taco_batch():
+    """B = 2, T_in 16, T_out 50."""
+    rng = np.random.RandomState(0)
+    return {"inputs": rng.randint(2, 70, (2, 16)),
+            "input_lengths": np.array([16, 11]),
+            "loss_coeff": np.ones(2, np.float32),
+            "mel_targets": rng.randn(2, 50, 80),
+            "linear_targets": rng.randn(2, 50, 1025),
+            "speaker_id": np.array([0, 1])}
+
+
 @pytest.mark.cuda
 def test_cuda_tacotron_f32_decode_matches_cpu():
     """2 texts x 60 steps at the both_r2 widths, f32, TF32 left at torch's
@@ -259,19 +289,12 @@ def test_cuda_tacotron_train_step_matches_cpu():
     _cuda()
     cfg = Config(tacotron=dataclasses.replace(
         BOTH_R2, compute_dtype="float32", dropout_prob=0.0))
-    rng = np.random.RandomState(0)
-    batch = {"inputs": rng.randint(2, 70, (2, 16)),
-             "input_lengths": np.array([16, 11]),
-             "loss_coeff": np.ones(2, np.float32),
-             "mel_targets": rng.randn(2, 50, 80),
-             "linear_targets": rng.randn(2, 50, 1025),
-             "speaker_id": np.array([0, 1])}
     out = {}
     for d in ("cuda", "cpu"):
         task = TacotronTask(cfg, is_randomly_initialized=True, device=d)
         state = task.init_state(0)
         out[d] = task.grads(state.params, state.batch_stats,
-                            batch_to_device(batch, d, "float16"))
+                            batch_to_device(_taco_batch(), d, "float16"))
     (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(float(l_card["loss"]), float(l_cpu["loss"]),
                                rtol=1e-5)
@@ -285,6 +308,57 @@ def test_cuda_tacotron_train_step_matches_cpu():
         scale = (means if k.endswith("running_mean")
                  else float(v.abs().max()))
         assert float((s_card[k].cpu() - v).abs().max()) <= 1e-5 * scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OTHER_CONFIGS)
+def test_cuda_attention_decode_matches_cpu(name):
+    """Each mechanism (and simple speakers) at the both_r2 widths, f32, 2
+    texts x 50 steps, card vs CPU: the alignments within 1e-4 of their
+    largest |value|, mel and linear within 1e-4 of the mel's (or 1e-4;
+    GMM's alignments are unnormalised), as chip_smoke.py holds them."""
+    _cuda()
+    cfg = _taco_config(name, max_iters=50)
+    params = convert.seeded_tacotron_params(cfg.tacotron, 0)
+    out = {d: Synthesizer(cfg, params, device=d).synthesize(
+        TEXTS, speaker_ids=[0, 1], attention_trim=False)
+        for d in ("cuda", "cpu")}
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert card["mel"].shape == (250, 80)
+        for key in ("mel", "linear", "alignment"):
+            ref = cpu["alignment" if key == "alignment" else "mel"]
+            np.testing.assert_allclose(
+                card[key], cpu[key], rtol=0,
+                atol=1e-4 * max(1.0, float(np.abs(ref).max())), err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OTHER_CONFIGS)
+def test_cuda_attention_gradient_matches_cpu(name):
+    """The gradient of seeded weights with each mechanism (and simple
+    speakers) at the both_r2 widths, f32, dropout off, B = 2, T_out 50,
+    card vs CPU: the loss within 1e-5 relative, the whole gradient within
+    1e-5 relative in the L2 norm; gmm's within 2e-2: its gradient at
+    this point is ill-conditioned in f32 (the port and JAX, both on a
+    CPU, part by ~1e-3: tests/test_torch_attention_train.py)."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device)
+    _cuda()
+    cfg = _taco_config(name, dropout_prob=0.0)
+    out = {}
+    for d in ("cuda", "cpu"):
+        task = TacotronTask(cfg, is_randomly_initialized=True, device=d)
+        state = task.init_state(0)
+        out[d] = task.grads(state.params, state.batch_stats,
+                            batch_to_device(_taco_batch(), d, "float16"))
+    (l_card, g_card, _), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(l_card["loss"]), float(l_cpu["loss"]),
+                               rtol=1e-5)
+    diff = sum(float(((g_card[k].cpu() - g) ** 2).sum())
+               for k, g in g_cpu.items())
+    norm = sum(float((g ** 2).sum()) for g in g_cpu.values())
+    bound = 2e-2 if name == "gmm" else 1e-5
+    assert diff ** 0.5 <= bound * norm ** 0.5
 
 
 def test_twin_at_kernel_width_matches_jax_scan_sampler():

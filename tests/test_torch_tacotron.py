@@ -1,7 +1,8 @@
 """PyTorch port: Tacotron free-run inference against the JAX package.
 
 Every ported module (fused GRU cell and GRU, prenet, highway, batch-normed
-conv, CBHG, monotonic attention), the converter, the whole deterministic
+conv, CBHG, monotonic attention; the other mechanisms are in
+tests/test_torch_attention.py), the converter, the whole deterministic
 decode (TINY and the full ``both_r2`` width), bf16, manual alignments and
 the synthesizer's mel half are fed the same numpy-seeded inputs and
 weights on both sides.  Tolerances are stated per test; the observed
@@ -236,9 +237,9 @@ def test_monotonic_attention_matches_jax():
     params = perturb(mod.init(jax.random.PRNGKey(0), *args)["params"], rng,
                      scale=0.5)
     want, want_state = mod.apply({"params": params}, *args)
-    net = load(PA.BahdanauMonotonicAttention(Q, U), params)
+    net = load(PA.BahdanauMonotonicAttention(Q, U, normalize=True), params)
     got, got_state = net(t(query), t(state), t(keys), t(mask),
-                         net.score_vector())
+                         net.loop_constants(t(keys)))
     close(got, want, F32_MODULE_TOL)
     close(got_state, want_state, F32_MODULE_TOL)
     init = PA.BahdanauMonotonicAttention.init_state(B, T)
@@ -246,19 +247,24 @@ def test_monotonic_attention_matches_jax():
                                   np.asarray(mod.init_state(B, T)))
 
 
-@pytest.mark.parametrize("name", [n for n in PA.ATTENTION_TYPES
-                                  if n != "bah_mon_norm"])
-def test_make_attention_refuses_unported_types(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PA.make_attention(name, 8, 8)
-
-
 def test_make_attention_knows_the_jax_table():
+    """Every name of the JAX table builds the class of the same name (its
+    flax scope) with JAX's parameter names; an unknown name raises
+    KeyError."""
     assert set(PA.ATTENTION_TYPES) == {
         "bah", "bah_norm", "bah_mon", "bah_mon_norm", "bah_mon_norm_hccho",
         "loc_sen", "gmm", "luong", "luong_scaled"}
     for name in PA.ATTENTION_TYPES:        # every name the JAX table has
-        JA.make_attention(name, 8)
+        mod = JA.make_attention(name, 8)
+        net = PA.make_attention(name, 12, 8)
+        assert type(net).__name__ == type(mod).__name__, name
+        params = mod.init(jax.random.PRNGKey(0), jnp.ones((2, 12)),
+                          mod.init_state(2, 5), jnp.ones((2, 5, 8)),
+                          jnp.ones((2, 5, 4)), jnp.ones((2, 5), bool))
+        want = set(convert.flatten(params.get("params", {})))
+        got = {k.replace(".weight", "/kernel").replace(".", "/")
+               for k in net.state_dict()}
+        assert got == want, name
     with pytest.raises(KeyError):
         PA.make_attention("nope", 8, 8)
 

@@ -27,6 +27,7 @@ from tacotron_wavenet_vocoder_korean_tpu.train.checkpoints import (
 from tacotron_wavenet_vocoder_korean_tpu_torch import config as PC
 from tacotron_wavenet_vocoder_korean_tpu_torch import train_tacotron as PTT
 from tacotron_wavenet_vocoder_korean_tpu_torch.data import TacotronBatcher
+from tacotron_wavenet_vocoder_korean_tpu_torch.synth.e2e import TTSPipeline
 from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
     Synthesizer)
 from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
@@ -72,12 +73,11 @@ def corpus(tmp_path_factory):
             for seed, name in enumerate(("spk_a", "spk_b"))]
 
 
-@pytest.fixture(scope="module")
-def base_run(corpus, tmp_path_factory):
-    """A TINY run dir at step 2: two port steps from seeded weights."""
-    cfg = PC.Config(tacotron=CFG, train=PC.TrainConfig(
+def make_base_run(corpus, run, t_cfg):
+    """A run dir at step 2 of ``t_cfg``: two port steps from seeded
+    weights."""
+    cfg = PC.Config(tacotron=t_cfg, train=PC.TrainConfig(
         num_test_per_speaker=1, best_eval_batches=1))
-    run = str(tmp_path_factory.mktemp("base") / "run")
     prepare_run_dir(run, cfg)
     task = TacotronTask(cfg, is_randomly_initialized=True, device="cpu")
     state = task.init_state(0)
@@ -87,6 +87,13 @@ def base_run(corpus, tmp_path_factory):
                                                           "cpu"))
     CheckpointManager(run).save(START, task.to_jax_tree(state))
     return run
+
+
+@pytest.fixture(scope="module")
+def base_run(corpus, tmp_path_factory):
+    """A TINY run dir at step 2."""
+    return make_base_run(corpus, str(tmp_path_factory.mktemp("base") / "run"),
+                         CFG)
 
 
 def copy_run(base_run, dest):
@@ -285,11 +292,64 @@ def test_cli_refuses(corpus, tmp_path, argv, error):
                   str(tmp_path / "r"), "--device", "cpu", *argv])
 
 
-def test_cli_refuses_model_type_simple(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="simple"):
-        PTT.main(["--data_paths", ",".join(corpus), "--log_dir",
-                  str(tmp_path / "r"), "--device", "cpu", "--model_type",
-                  "simple"])
+def test_cli_model_type_simple_matches_jax(corpus, tmp_path):
+    """``--model_type simple`` on both CLIs, resuming copies of one TINY
+    simple-speaker run dir from step 2 to 4: the same metrics.jsonl
+    within 1e-5 relative (as test_cli_metrics_match_jax; observed <=
+    1.1e-6), the run served by TTSPipeline with both speaker ids, and
+    the port's step-4 checkpoint restored by the JAX task's
+    abstract_state, its params within 1e-4 of each leaf's largest of
+    JAX's own run (observed <= 2.7e-6); the biases, which start at 0, hold
+    Adam's first four updates alone, which carry the gradient's rounding
+    at ~1e-4 relative: 1e-3 of their largest (observed 3.9e-4); the conv
+    biases that feed a training-mode batch norm directly move by rounding
+    noise alone: 1e-6 absolute."""
+    from tacotron_wavenet_vocoder_korean_tpu.data.loader import (
+        TacotronBatcher as JaxBatcher)
+    base = make_base_run(corpus, str(tmp_path / "base"),
+                         dataclasses.replace(CFG, model_type="simple"))
+    jrun = copy_run(base, tmp_path / "jax")
+    prun = copy_run(base, tmp_path / "port")
+    port_train(corpus, prun, "--load_path", prun, "--num_steps", "4",
+               "--model_type", "simple")
+    load_jax_train_tacotron().train(jax_args(corpus, jrun, num_steps=4,
+                                             model_type="simple"))
+    got, want = metrics(prun), metrics(jrun)
+    assert [(m["step"], sorted(m)) for m in got] == [
+        (m["step"], sorted(m)) for m in want]
+    assert {m["step"] for m in got} == {4}
+    for g, w in zip(got, want):
+        for k in w:
+            if k not in ("step", "time"):
+                np.testing.assert_allclose(g[k], w[k], rtol=METRIC_TOL,
+                                           atol=1e-7, err_msg=k)
+    served = TTSPipeline.from_checkpoint(prun, device="cpu").tts(
+        ["존경하는 국민 여러분", "존경하는 국민 여러분"], speaker_ids=[0, 1])
+    assert all(np.isfinite(r["mel"]).all() and r["wav"].size
+               for r in served)
+    cfg = JC.load_config(prun)
+    assert cfg.tacotron.model_type == "simple"
+    example = JTT.batch_to_dict(next(iter(JaxBatcher(corpus, cfg, "test"))))
+    abstract = JTT.TacotronTask(cfg).abstract_state(jax.random.PRNGKey(0),
+                                                    example)
+    template = jax.tree.map(lambda x: np.empty(x.shape, x.dtype), abstract)
+    mgrs = [JaxCheckpointManager(r) for r in (prun, jrun)]
+    from_port, own = (plain(m.restore(template))["params"] for m in mgrs)
+    for m in mgrs:
+        m.close()
+    flat_g = dict(jax.tree_util.tree_flatten_with_path(from_port)[0])
+    flat_w = dict(jax.tree_util.tree_flatten_with_path(own)[0])
+    assert set(flat_g) == set(flat_w)
+    assert "speaker_embedding" in from_port
+    assert not any(k.startswith("sp_") for k in from_port)
+    for k, w in flat_w.items():
+        err = float(np.abs(flat_g[k] - w).max())
+        bias = k[-1].key == "bias"
+        if bias and "proj_2" in str(k) and "'conv'" in str(k):
+            assert err <= 1e-6, k
+        else:
+            assert err <= (1e-3 if bias else 1e-4) * float(
+                np.abs(w).max()), k
 
 
 def test_cli_single_speaker_seeded_run(corpus, tmp_path):

@@ -245,7 +245,8 @@ def test_scheduled_sampling_mixed_draws_match_a_hand_built_reference():
                                carry.prev_frame[i] for i in range(2)])
             carry = carry._replace(prev_frame=fed)
             carry, f, _ = dec.step(carry, enc.keys, enc.values.float(),
-                                   enc.mask, dec.step.attention.score_vector())
+                                   enc.mask,
+                                   dec.step.attention.loop_constants(enc.keys))
             frames.append(f)
         mel = torch.stack(frames, 1).reshape(2, T_dec * r, 80)
     close(got["mel_outputs"], mel.numpy(), 1e-6, "mel")
@@ -416,6 +417,40 @@ def test_three_train_steps_match_jax():
     for k, v in pstate.batch_stats.items():
         close(v, flat[convert._jax_key(k, convert.tacotron_scopes(model))[1]],
               1e-6, k)
+
+
+@pytest.mark.parametrize("name", ["simple", "loc_sen"])
+def test_two_train_steps_match_jax_other_configs(name):
+    """Two steps from a resumed state with simple speakers (bah_mon_norm)
+    and with loc_sen (deepvoice speakers), at the widths of
+    tests/test_torch_attention.py: the metrics within 1e-5 relative, then
+    the params and Adam's moments within 1e-5 of each leaf's largest, the
+    batch_stats within 1e-6."""
+    from test_torch_attention import config
+    t_cfg = dataclasses.replace(config(name), dropout_prob=0.0)
+    jtask, jstate, task, pstate = _states(t_cfg, seed=12)
+    jstep = jax.jit(jtask.train_step)
+    for i in range(2):
+        b = make_batch(seed=40 + i)
+        jstate, jm = jstep(jstate, jbatch(b), jax.random.PRNGKey(0))
+        pstate, pm = task.train_step(pstate, pbatch(b))
+        assert set(pm) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(pm[k]), float(jm[k]),
+                                       rtol=STEP_LOSS_TOL, err_msg=k)
+    assert int(pstate.step) == int(jstate.step) == 1002
+    adam = jstate.opt_state[1][0]
+    errs = leaf_errors(pstate.params, jstate.params, t_cfg)
+    for moment in ("mu", "nu"):
+        errs.update({f"{moment}:{k}": v for k, v in leaf_errors(
+            pstate.opt_state[1][0][moment], getattr(adam, moment),
+            t_cfg).items()})
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= STEP_PARAM_TOL, (worst, errs[worst])
+    flat = convert.flatten(plain(jstate.batch_stats))
+    scopes = convert.tacotron_scopes(task.model)
+    for k, v in pstate.batch_stats.items():
+        close(v, flat[convert._jax_key(k, scopes)[1]], 1e-6, k)
 
 
 def test_scheduled_sampling_train_step_reports_its_prob():
