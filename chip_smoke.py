@@ -47,26 +47,38 @@ three saves with the port's ``CheckpointManager`` (two kept), the saved
 EMA served through one kernel launch, and the step's time, peak memory
 and kernels.  Then the batcher's device store against its host path and
 the prefetcher, ``wn_moon`` resumed through the ``train_vocoder`` CLI for
-40 steps and its run resumed again for 10, a seeded two-speaker run, the
+20 steps and its run resumed again for 10, a seeded two-speaker run, the
 run served through the ``generate`` CLI (one kernel launch), and the
 feeder's wait share with the store on and off.
 
 Then Tacotron training on that corpus, split into two speaker dirs, at
 ``both_r2``'s config: ``both_r2`` resumed at step 106,000 through the
-``train_tacotron`` CLI for 20 steps (the learning rate held to the Noam
+``train_tacotron`` CLI for 10 steps (the learning rate held to the Noam
 schedule, the loss below seeded weights'), then side by side its run
-resumed for 10 more, a seeded single-speaker run, and the run served
+resumed for 5 more, a seeded single-speaker run, and the run served
 through the ``tts`` CLI with the trained vocoder (one kernel launch);
 the batcher's device store against its host path; one f32 step of the
 trained state the CLI left (weights, batch statistics, Adam) on the card
 against the CPU with the same dropout masks; the step's time, kernels,
 busy share and peak memory at B = 32 with 1,000 target frames (200
-decoder steps) and with the corpus's 250, f32 and bf16.
+decoder steps) and with the corpus's 250, f32 and bf16 (kernels and busy
+share at 250).
+
+Last, multi-rank training on the one card (two ranks share it over gloo;
+the phases show correctness and overheads, not scaling across cards):
+``train_vocoder --use_mesh`` resuming ``wn_moon`` as one plain process
+beside the run without it, and on two ranks launched by
+``torch.distributed.run``, served by the ``generate`` CLI (one kernel
+launch); the WaveNet mesh step at the ``wn_moon`` width as (n_data,
+n_model) = (1, 2) and (2, 1) against one process; Tacotron's data-parallel
+step at the ``both_r2`` width on two ranks against one, and
+``train_tacotron --use_mesh`` on two ranks beside one; the steps' times
+and the collectives' share.
 
 Wavs, run dirs and unpacked checkpoints go to temporary directories that
 are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
-``data`` and a ``taco_train`` JSON line carry those phases' numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+``data``, a ``taco_train``, an ``attention`` and a ``mesh`` JSON line carry
+those phases' numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -145,7 +157,7 @@ KS_ALPHA_COEF = 1.95
 ALPHA = 0.001
 # Timing: the plain twin is timed over a span of this many steps; the
 # previous step design beside the kernel over SIDE_T steps of B = 4.
-SPAN = 256
+SPAN = 128
 SIDE_T = 8192
 # Tacotron (text -> mel): four requests, two per speaker, with digits and
 # Latin letters, decoded in one batch over the served max_iters.
@@ -165,7 +177,7 @@ TACO_F32_TOL = 1e-4
 # noise: mean |card - CPU| at most this many times the CPU's mean
 # |bf16 - f32| (as tests/test_torch_tacotron.py holds the port to JAX).
 TACO_BF16_RATIO = 2.0
-TACO_REPS = 5          # timed repetitions of each decode, after a warm-up
+TACO_REPS = 2          # timed repetitions of each decode, after a warm-up
 ALIGN_SUM_TOL = 1e-3     # a column of monotonic attention sums to <= 1
 # Griffin-Lim card vs CPU, the same initial phase: cuFFT and the CPU's FFT
 # round differently, 60 iterations carry it and the inverse pre-emphasis
@@ -222,7 +234,7 @@ DATA_LIN_F64_RATIO = 2.0
 DATA_F16_ATOL, DATA_F16_RTOL = 4e-3, 2e-3
 DATA_BATCHES = 5
 DATA_START = 260250
-DATA_RESUME_TO, DATA_RESUME_MORE = 260290, 260300
+DATA_RESUME_TO, DATA_RESUME_MORE = 260270, 260280
 DATA_HPARAMS = ("train.sync_every=10,train.summary_interval=20,"
                 "train.test_interval=20")
 DATA_GC_STEPS = 10
@@ -233,7 +245,7 @@ DATA_SERVE_MEL = E2E_MEL
 # 003.* / 006.* clips -> speaker 0, 8 NB* clips -> speaker 1; 40-240 frames,
 # text 0), at both_r2's config (B = 32, bf16, deepvoice, 2 speakers).
 # (a) one f32 step of the trained state the CLI of (c) leaves (both_r2's
-# weights, batch_stats and Adam state, 30 steps on), card vs CPU, B = 4,
+# weights, batch_stats and Adam state, 15 steps on), card vs CPU, B = 4,
 # the same dropout masks.  Bounds from measurement (on an NVIDIA H100
 # 80GB HBM3 at 700 W: loss 2.3e-7 relative, params 5.2e-7 and batch_stats
 # 1.6e-7 of each leaf's largest |value|; the update alone is not bounded:
@@ -247,12 +259,13 @@ TACO_GRAD_TOL = 1e-5
 # (b) the step's time at full width: B = 32, T_in = 96, T_out = 1,000 (200
 # decoder steps: JAX's filter admits up to r * max_iters - r = 995 frames,
 # bucketed to 1,000), and at the corpus's B = 32 x 250 frames; kernels and
-# device time counted at the first shape.
+# device time counted at the second shape (the profiler's pass over the
+# first shape's ~140,000 kernels costs more than its steps).
 TACO_TIMING_SHAPES = ((32, 96, 1000), (32, 48, 250))
-TACO_TRAIN_REPS = 5               # timed steps, after a warm-up
+TACO_TRAIN_REPS = 2               # timed steps, after a warm-up
 # (c) both_r2 resumed through the train_tacotron CLI over two calls.
-TACO_START, TACO_RESUME_TO, TACO_RESUME_MORE = 106000, 106020, 106030
-TACO_HPARAMS = ("train.sync_every=10,train.summary_interval=10,"
+TACO_START, TACO_RESUME_TO, TACO_RESUME_MORE = 106000, 106010, 106015
+TACO_HPARAMS = ("train.sync_every=5,train.summary_interval=5,"
                 "train.test_interval=10,train.best_eval_batches=1")
 TACO_WARMUP = 4000.0              # the schedule of a --load_path resume
 TACO_LR_TOL = 1e-9
@@ -286,18 +299,70 @@ TACO_SEEDED_STEPS = 10            # (e)
 # speaker dirs, ATT_CLI_STEPS steps, served by the tts CLI with trained
 # wn_moon for speakers 0 and 1 (one kernel launch).
 ATT_SERVE_STEPS = 200
-ATT_REPS = 3
+ATT_REPS = 2
 ATT_MASKED_TOL = 1e-3
 ATT_CMP_B = 2
-ATT_CMP_STEPS = 50
+ATT_CMP_STEPS = 25
 ATT_F32_TOL = 1e-4
 ATT_GRAD_T_OUT = 100
 ATT_GMM_GRAD_TOL = 2e-2
-ATT_CLI_STEPS = 10
+ATT_CLI_STEPS = 5
 ATT_CLI_HPARAMS = ("tacotron.compute_dtype=bfloat16,tacotron.fused_rnn=true,"
-                   "tacotron.scan_unroll=8,train.sync_every=10,"
-                   "train.summary_interval=10,train.test_interval=10,"
+                   "tacotron.scan_unroll=8,train.sync_every=5,"
+                   "train.summary_interval=5,train.test_interval=5,"
                    "train.best_eval_batches=1")
+# The mesh, on the one card: two ranks share it over gloo (NCCL refuses
+# two ranks on one device), so these phases show that the mesh code runs
+# on CUDA tensors and computes what one process computes, and its
+# overheads; not scaling across cards.  (a) train_vocoder --use_mesh as
+# one plain process (a one-rank NCCL mesh) resuming wn_moon for
+# MESH_CLI_STEPS steps beside the run without --use_mesh: the same kernels
+# in the same order, so whatever parts them is the card's own
+# nondeterminism (atomics in some backward convolutions), which the MoL
+# loss's ill-conditioned gradient and Adam carry from step to step (a CPU
+# rehearsal, whose sums depend on the thread count, parted 1.5e-6 at the
+# first step and 6.4e-4 in the loss by the tenth); (b) the same on 2 ranks
+# (torch.distributed.run) beside (a).  Each: the first step's loss within
+# MESH_FIRST_TOL relative (only the order of the sums differs), the later
+# losses within MESH_LATER_TOL, grad_norm and the rest printed; (b)'s run
+# served by the
+# generate CLI on a MESH_SERVE_FRAMES-frame mel (one kernel launch).  (c)
+# The WaveNet mesh step at the wn_moon width (B = 8, T = 15,000, resumed,
+# f32) as (n_data, n_model) = (1, 2) and (2, 1) against one process: in
+# float64 on the first MESH_F64_T samples of each crop, the graph's
+# gradient under one cotangent into raw_output and the loss's gradient
+# within MESH_GRAD_TOL of each leaf's largest |value|;
+# the f32 step's loss within 1e-5 relative.  The gradients are compared in
+# float64 because in f32 they are ill-conditioned at trained wn_moon on
+# real crops: the MoL loss's cdf_delta cancels, and a rounding difference
+# crosses a ReLU's kink in the skip sum.  In a CPU rehearsal (B = 2, T =
+# 6,000) one process's f32 graph gradient at B = 2 parted from float64 by
+# 0.42 of layer_13_skip_kernel's largest while the sum of the two B = 1
+# gradients stayed within 7e-6.  (d)
+# Tacotron at both_r2's width in f32 (so the comparison is not bf16's
+# rounding), seeded weights, B = MESH_TACO_B, the global batch's dropout
+# masks: one step's gradient on 2 ranks within TACO_GRAD_TOL of 1 in L2,
+# the new running variances within MESH_STATS_TOL of each leaf's largest,
+# the running means of the largest of all means; then train_tacotron
+# --use_mesh on 2 ranks beside 1 as in (b).
+# (e) s/step over MESH_REPS steps, then the collectives' share with the
+# device synchronised around each collective (host clock).
+MESH_RANK_TIMEOUT_S = 300
+MESH_CLI_STEPS = 10
+MESH_HPARAMS = ("train.sync_every=1,train.summary_interval=1,"
+                "train.test_interval=10")
+MESH_FIRST_TOL, MESH_LATER_TOL = 1e-5, 1e-3
+MESH_SERVE_FRAMES = 40
+MESH_GRAD_TOL = 1e-5
+MESH_F64_T = TRAIN_CMP_T          # the float64 gradients' crop
+MESH_STATS_TOL = 1e-6
+MESH_TACO_B = 32
+MESH_TACO_SEED = 5
+MESH_TACO_HPARAMS = ("tacotron.fused_rnn=true,tacotron.scan_unroll=8,"
+                     "tacotron.compute_dtype=float32,train.sync_every=1,"
+                     "train.summary_interval=1,train.test_interval=1000,"
+                     "train.best_eval_batches=0")
+MESH_REPS = 2
 
 
 def log(msg: str) -> None:
@@ -1563,7 +1628,7 @@ def data_phases(dev, smi, tmp, data: str, library_ms: float,
 
     run = os.path.join(tmp, "run")
     with phase(f"data (c): resume wn_moon through the train_vocoder CLI, "
-               f"{DATA_START} -> {DATA_RESUME_TO} -> {DATA_RESUME_MORE}"):
+               f"{DATA_START} -> {DATA_RESUME_TO}"):
         rc, text, secs = run_cli("train_vocoder", [
             "--data_dir", data, "--log_dir", run, "--load_path", WN_MOON,
             "--num_steps", str(DATA_RESUME_TO), "--hparams", DATA_HPARAMS,
@@ -1605,16 +1670,54 @@ def data_phases(dev, smi, tmp, data: str, library_ms: float,
                       "mean_logged_loss": mean_loss,
                       "learning_rate": lr[-1]}
 
-        rc, text, secs2 = run_cli("train_vocoder", [
-            "--data_dir", data, "--log_dir", run, "--load_path", run,
-            "--num_steps", str(DATA_RESUME_MORE), "--hparams", DATA_HPARAMS,
-            *size_args], dev)
-        require_rc0("train_vocoder (resume the run)", rc, text)
+        # (e) serves the run as this call left it, copied, while the
+        # second call writes on in the original.
+        run_first = os.path.join(tmp, f"run_{DATA_RESUME_TO}")
+        shutil.copytree(run, run_first)
+
+    wav_path = os.path.join(tmp, "served.wav")
+    script = (
+        "import json, sys\n"
+        f"from {PKG} import generate\n"
+        f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
+        "generate.main(sys.argv[1:])\n"
+        "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
+    dirs = []
+    for speaker, mine in (("moon", lambda f: not f.startswith("NB")),
+                          ("son", lambda f: f.startswith("NB"))):
+        d = os.path.join(tmp, f"data_{speaker}")
+        os.makedirs(d)
+        sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
+        for r in sel:
+            shutil.copy(os.path.join(data, r.split("|")[0]), d)
+        with open(os.path.join(d, "train.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(sel) + "\n")
+        dirs.append(d)
+    gc_run = os.path.join(tmp, "gc_run")
+    with phase(f"data (c), (d) and (e), side by side: the run of (c) "
+               f"resumed to {DATA_RESUME_MORE}; a seeded two-speaker run, "
+               f"{DATA_GC_STEPS} steps; the generate CLI serves the run of "
+               f"(c), one kernel launch"):
+        done = run_side_by_side({
+            "train_vocoder (resume the run)": [
+                "-m", f"{PKG}.train_vocoder", "--data_dir", data,
+                "--log_dir", run, "--load_path", run, "--num_steps",
+                str(DATA_RESUME_MORE), "--hparams", DATA_HPARAMS,
+                *size_args],
+            "train_vocoder (two speakers)": [
+                "-m", f"{PKG}.train_vocoder", "--data_dir", ",".join(dirs),
+                "--log_dir", gc_run, "--num_steps", str(DATA_GC_STEPS),
+                "--hparams", "train.sync_every=5,train.summary_interval=5,"
+                "train.test_interval=5", *size_args],
+            "generate": ["-c", script, "--load_path", run_first, "--mel",
+                         DATA_SERVE_MEL, "--out", wav_path]}, dev, tmp)
+
+        text, secs2 = done["train_vocoder (resume the run)"]
         with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
             log_text = f.read()
         kept = CheckpointManager(run).all_steps()
-        log(f"  second call: rc 0 in {secs2:.1f} s wall; kept steps {kept} "
-            f"(max_checkpoints {cfg.train.max_checkpoints})")
+        log(f"  (c) second call: rc 0 in {secs2:.1f} s wall; kept steps "
+            f"{kept} (max_checkpoints {cfg.train.max_checkpoints})")
         if not (f"Resuming from step {DATA_RESUME_TO}" in log_text
                 and kept[-1] == DATA_RESUME_MORE
                 and len(kept) <= cfg.train.max_checkpoints):
@@ -1622,32 +1725,13 @@ def data_phases(dev, smi, tmp, data: str, library_ms: float,
                                  f"{text[-4000:]}")
         out["cli"]["second_call_wall_s"] = secs2
 
-    with phase(f"data (d): seeded two-speaker run, {DATA_GC_STEPS} steps"):
-        dirs = []
-        for speaker, mine in (("moon", lambda f: not f.startswith("NB")),
-                              ("son", lambda f: f.startswith("NB"))):
-            d = os.path.join(tmp, f"data_{speaker}")
-            os.makedirs(d)
-            sel = [r for r in rows_of(data) if mine(r.split("|")[0])]
-            for r in sel:
-                shutil.copy(os.path.join(data, r.split("|")[0]), d)
-            with open(os.path.join(d, "train.txt"), "w",
-                      encoding="utf-8") as f:
-                f.write("\n".join(sel) + "\n")
-            dirs.append(d)
-        gc_run = os.path.join(tmp, "gc_run")
-        rc, text, secs = run_cli("train_vocoder", [
-            "--data_dir", ",".join(dirs), "--log_dir", gc_run,
-            "--num_steps", str(DATA_GC_STEPS), "--hparams",
-            "train.sync_every=5,train.summary_interval=5,"
-            "train.test_interval=5", *size_args], dev)
-        require_rc0("train_vocoder (two speakers)", rc, text)
+        text, secs = done["train_vocoder (two speakers)"]
         with open(os.path.join(gc_run, "train.log"), encoding="utf-8") as f:
             gc_log = f.read()
         gc_rows = read_metrics(gc_run)
         gc_losses = [r.get("loss", r.get("test_loss")) for r in gc_rows]
         num_speakers = C.load_config(gc_run).wavenet.num_speakers
-        log(f"  rc 0 in {secs:.1f} s wall; num_speakers {num_speakers}; "
+        log(f"  (d) rc 0 in {secs:.1f} s wall; num_speakers {num_speakers}; "
             f"metrics {gc_rows}")
         if not ("gc=on" in gc_log and num_speakers == 2 and len(gc_rows) == 4
                 and np.isfinite(gc_losses).all()):
@@ -1655,27 +1739,11 @@ def data_phases(dev, smi, tmp, data: str, library_ms: float,
                                  f"{text[-4000:]}")
         out["two_speakers"] = {"wall_s": secs, "metrics": gc_rows}
 
-    with phase("data (e): the generate CLI serves the CLI's run, one "
-               "kernel launch"):
-        wav_path = os.path.join(tmp, "served.wav")
-        script = (
-            "import json, sys\n"
-            f"from {PKG} import generate\n"
-            f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
-            "generate.main(sys.argv[1:])\n"
-            "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
-        extra = [] if dev.type == "cuda" else ["--device", "cpu"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", script, "--load_path", run, "--mel",
-             DATA_SERVE_MEL, "--out", wav_path, *extra], cwd=REPO,
-            capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
-        secs = time.perf_counter() - t0
-        require_rc0("generate", proc.returncode, proc.stdout + proc.stderr)
-        launches = json.loads(proc.stdout.strip().splitlines()[-1])
+        text, secs = done["generate"]
+        launches = json.loads(text.strip().splitlines()[-1])
         frames = np.load(DATA_SERVE_MEL).shape[0]
         wav = load_wav(wav_path, a.sample_rate)
-        log(f"  rc 0 in {secs:.1f} s wall; launches {launches}; wav "
+        log(f"  (e) rc 0 in {secs:.1f} s wall; launches {launches}; wav "
             f"{wav.shape[0]} samples ({frames} frames), peak "
             f"{np.abs(wav).max():.3f}")
         if (wav.shape != (frames * hop,) or not np.isfinite(wav).all()
@@ -2140,7 +2208,7 @@ def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
                    "linear_targets": rng.randn(B, T_out, cfg.audio.num_freq),
                    "speaker_id": np.arange(B) % 2}
             b = batch_to_device(syn, dev, cfg.train.transfer_dtype)
-            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[0]
+            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[1]
             for name, c in (("float32", cfg32), ("bfloat16", cfg)):
                 task = TacotronTask(c, vocab, True, dev)
                 gen = torch.Generator(dev).manual_seed(0)
@@ -2568,6 +2636,523 @@ def tts_phases(dev, smi, tmp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The mesh: multi-rank training on the one card
+# ---------------------------------------------------------------------------
+
+def _rank_entry(fn, rank: int, world: int, port: int, args, out) -> None:
+    """One rank: the variables torch.distributed.run sets (and its one
+    host thread per rank), then ``fn(*args)``; its result (or its
+    traceback) goes to ``out``."""
+    import traceback
+    import torch.distributed as dist
+    os.environ.update({
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+        "RANK": str(rank), "WORLD_SIZE": str(world),
+        "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)})
+    torch.set_num_threads(1)
+    try:
+        out.put((rank, fn(*args), None))
+    except BaseException:
+        out.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args) -> list:
+    """``fn(*args)`` in ``world`` ranks forked from a fork server that has
+    imported the port (no CUDA in the server); their results by rank.  A
+    rank that raises, dies or gives no result within MESH_RANK_TIMEOUT_S
+    raises here, and every rank is ended."""
+    import queue
+    import socket
+    ctx = torch.multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([f"{PKG}.train.wavenet_task",
+                                f"{PKG}.train.tacotron_task"])
+    out = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_rank_entry, daemon=True,
+                         args=(fn, r, world, port, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.perf_counter() + MESH_RANK_TIMEOUT_S
+    try:
+        while len(results) < world:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{fn.__name__}: no result in "
+                                   f"{MESH_RANK_TIMEOUT_S} s")
+            try:
+                rank, value, err = out.get(timeout=0.5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    raise RuntimeError(f"{fn.__name__}: ranks {dead} died")
+                continue
+            if err is not None:
+                raise RuntimeError(f"{fn.__name__} rank {rank}:\n{err}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        out.close()
+    return [results[r] for r in range(world)]
+
+
+def stop_children() -> None:
+    """End every process this script started that is still running: the
+    fork server of run_ranks, then the resource tracker it holds open
+    (each stopped and reaped as multiprocessing's own tests stop them),
+    then any other child, which is named, ended and reaped.  Without this
+    the fork server outlives the script by the time it takes to exit."""
+    import signal
+    from multiprocessing import forkserver, resource_tracker
+    for helper in (forkserver._forkserver, resource_tracker._resource_tracker):
+        if hasattr(helper, "_stop"):
+            helper._stop()
+    me = str(os.getpid())
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if stat[stat.rindex(")") + 2:].split()[1] != me:
+            continue
+        print(f"chip_smoke: ending child {pid}: {cmd[:200]}", file=sys.stderr)
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(int(pid), signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(int(pid), 0)
+
+
+def timed_steps(step, reps: int, device) -> dict:
+    """Host seconds per call of ``step`` over ``reps`` calls (the device
+    synchronised around them), then the same with the collective clock
+    on: its share of those seconds."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.parallel import (
+        CollectiveClock)
+    sync = ((lambda: torch.cuda.synchronize(device))
+            if device.type == "cuda" else (lambda: None))
+    out = {}
+    for clocked in (False, True):
+        CollectiveClock.reset(clocked)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        sync()
+        out["clocked" if clocked else "plain"] = (time.perf_counter()
+                                                  - t0) / reps
+    out["s_per_step"] = out.pop("plain")
+    out["collective_s_per_step"] = CollectiveClock.seconds / reps
+    out["collective_share"] = CollectiveClock.seconds / reps / out["clocked"]
+    out["collectives_per_step"] = CollectiveClock.calls / reps
+    CollectiveClock.reset(False)
+    return out
+
+
+def _wavenet_cfg():
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    cfg = C.load_config(WN_MOON)
+    return C.overlay(cfg, wavenet=DATA_OVERRIDES) if DATA_OVERRIDES else cfg
+
+
+def graph_grads(task, params: dict, b: dict, cot: torch.Tensor) -> dict:
+    """The gradient of ``<raw_output, cot>`` in every parameter (f32, TF32
+    off): the training graph's backward without the MoL loss, whose f32
+    gradient is ill-conditioned."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.device import no_tf32
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with no_tf32():
+        o = task.model(leaves, b["input_wav"], b["local_condition"])
+        g = torch.autograd.grad(o["raw_output"], list(leaves.values()),
+                                grad_outputs=cot, allow_unused=True)
+    return {k: torch.zeros_like(v) if x is None else x
+            for (k, v), x in zip(leaves.items(), g)}
+
+
+def wavenet_grads64(task, params: dict, b: dict, cot: torch.Tensor):
+    """The graph's gradient under ``cot`` and the loss's gradient, in
+    float64, on the first MESH_F64_T samples of the batch."""
+    hop = task.cfg.audio.hop_size
+    p64 = {k: v.double() for k, v in params.items()}
+    b64 = {"input_wav": b["input_wav"][:, :MESH_F64_T].double(),
+           "local_condition": b["local_condition"][
+               :, :MESH_F64_T // hop].double()}
+    return (graph_grads(task, p64, b64, cot.double()),
+            task.grads(p64, b64)[1])
+
+
+def mesh_wavenet_rank(n_data: int, n_model: int, tree: dict, batch: dict,
+                      cot: np.ndarray, device: str) -> dict:
+    """A rank of (c): the resumed wn_moon state ``tree`` (JAX's layout),
+    this rank's shard and rows of it; in float64 the graph's gradient
+    under this rank's rows of the cotangent ``cot`` (summed over the data
+    group) and the loss's gradient (averaged), both gathered; one f32
+    step, then the step timed."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        from_jax_tree)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.parallel import (
+        all_reduce_mean, gather_tree, make_mesh)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask, batch_to_device)
+    mesh = make_mesh(n_data, n_model, device=device)
+    task = WaveNetTask(_wavenet_cfg(), mesh=mesh)
+    state = task.shard_state(from_jax_tree(task.init_state(0), tree))
+    n = len(batch["input_wav"]) // n_data
+    d = mesh.coords[0]
+    b = batch_to_device({k: v[d * n:(d + 1) * n] for k, v in batch.items()},
+                        mesh.device)
+    graph, grads = wavenet_grads64(task, state.params, b, torch.from_numpy(
+        cot[d * n:(d + 1) * n]).to(mesh.device))
+    graph, grads = all_reduce_mean(mesh, graph, grads)
+    graph = gather_tree(mesh, {k: v * n_data for k, v in graph.items()},
+                        task.placements.params)
+    grads = gather_tree(mesh, grads, task.placements.params)
+    new, metrics = task.train_step(state, b)
+    holder = [new]
+
+    def step():
+        holder[0], m = task.train_step(holder[0], b)
+        float(m["loss"])
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "shapes": {k: tuple(v.shape) for k, v in new.params.items()
+                      if k in ("layer_0_skip_kernel", "layer_0_skip_bias",
+                               "post_1/kernel", "post_2/kernel")},
+           "backend": mesh.backend,
+           "timing": timed_steps(step, MESH_REPS, mesh.device)}
+    if mesh.is_main:
+        out["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+        out["graph"] = {k: v.cpu().numpy() for k, v in graph.items()}
+    return out
+
+
+def _tacotron_cfg():
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    cfg = C.overlay(C.load_config(BOTH_R2), tacotron=TACO_OVERRIDES)
+    return C.overlay(cfg, tacotron={"compute_dtype": "float32"})
+
+
+def mesh_tacotron_rank(batch: dict, device: str) -> dict:
+    """A rank of (d): seeded both_r2-width weights in f32, this rank's rows
+    of the global batch, the global batch's dropout masks from a seeded
+    generator; the gradient averaged over the ranks and the new running
+    statistics, then the step timed."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.parallel import (
+        all_reduce_mean, make_mesh)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device)
+    mesh = make_mesh(device=device)
+    task = TacotronTask(_tacotron_cfg(), is_randomly_initialized=True,
+                        mesh=mesh)
+    state = task.init_state(MESH_TACO_SEED)
+    n = len(batch["inputs"]) // mesh.n_data
+    d = mesh.coords[0]
+    b = batch_to_device({k: v[d * n:(d + 1) * n] for k, v in batch.items()},
+                        mesh.device)
+    draws = task.draw(b, torch.Generator(mesh.device).manual_seed(
+        MESH_TACO_SEED), state.step)
+    losses, grads, stats = task.grads(state.params, state.batch_stats, b,
+                                      draws)
+    grads, losses = all_reduce_mean(mesh, grads, losses)
+    gen = torch.Generator(mesh.device).manual_seed(MESH_TACO_SEED)
+    holder = [state]
+
+    def step():
+        holder[0], m = task.train_step(holder[0], b, generator=gen)
+        float(m["loss"])
+    out = {"loss": float(losses["loss"]), "backend": mesh.backend,
+           "timing": timed_steps(step, MESH_REPS, mesh.device)}
+    if mesh.is_main:
+        out["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+        out["stats"] = {k: v.cpu().numpy() for k, v in stats.items()}
+    return out
+
+
+def metric_rows(run: str) -> dict:
+    """metrics.jsonl of a run: ``{step: {key: value}}``, lines of one step
+    merged."""
+    rows = {}
+    for r in read_metrics(run):
+        rows.setdefault(r["step"], {}).update(
+            {k: v for k, v in r.items() if k not in ("step", "time")})
+    return rows
+
+
+def hold_runs(name: str, got: str, want: str, first_tol: float,
+              loss_tol: float, other_tol: float = None) -> dict:
+    """The metrics of run ``got`` beside run ``want``'s, step by step: the
+    first step's loss within ``first_tol`` relative, every loss after
+    within ``loss_tol``, the other values (grad_norm, the learning rate,
+    the train-test gap against the test loss) within ``other_tol`` when
+    it is given, else printed; returns the largest relative
+    differences."""
+    g, w = metric_rows(got), metric_rows(want)
+    if sorted(g) != sorted(w) or not w:
+        raise AssertionError(f"{name}: steps {sorted(g)} vs {sorted(w)}")
+    steps = sorted(w)
+    first = abs(g[steps[0]]["loss"] / w[steps[0]]["loss"] - 1)
+    worst = {"loss": 0.0, "other": 0.0}
+    for s in steps:
+        if sorted(g[s]) != sorted(w[s]):
+            raise AssertionError(f"{name}: step {s} keys {sorted(g[s])}")
+        for k, v in w[s].items():
+            scale = abs(w[s]["test_loss"]) if k == "gap_test_train" else abs(v)
+            kind = "loss" if k.endswith("loss") else "other"
+            worst[kind] = max(worst[kind],
+                              abs(g[s][k] - v) / max(scale, 1e-30))
+    log(f"  {name}: loss by step " + ", ".join(
+        f"{s}: {g[s]['loss']:.7f} / {w[s]['loss']:.7f}" for s in steps
+        if "loss" in w[s]) + f"; first step {first:.3e} (bound "
+        f"{first_tol:g}); losses {worst['loss']:.3e} (bound {loss_tol:g}), "
+        f"other values {worst['other']:.3e} ("
+        + (f"bound {other_tol:g})" if other_tol else "printed)"))
+    if not (first <= first_tol and worst["loss"] <= loss_tol
+            and (other_tol is None or worst["other"] <= other_tol)):
+        raise AssertionError(f"{name}: outside the bounds")
+    return {"first_step_rel": first, "losses_rel": worst["loss"],
+            "others_rel": worst["other"]}
+
+
+def mesh_phases(dev, smi, tmp, data: str, dirs: list) -> dict:
+    """Multi-rank training on the one card: (a) ``train_vocoder
+    --use_mesh`` as one plain process (a one-rank mesh) beside the same
+    run without it; (b) the same on two gloo ranks
+    (``torch.distributed.run``), served by the generate CLI (one kernel
+    launch); (c) the WaveNet mesh step at the wn_moon width, (1, 2) and
+    (2, 1), against the one-process step; (d) Tacotron data parallel at
+    both_r2's width, the library step on 2 ranks against 1, and
+    ``train_tacotron --use_mesh`` on 2 ranks beside 1; (e) the steps'
+    times and the collectives' share.  The commands of (a), (b) and (d)
+    run side by side first, then the library steps (timed), then the
+    serving.  Two ranks share the card: nothing here measures scaling
+    across cards.  Returns the ``mesh`` line, with the serving launches
+    under ``launches``."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        to_jax_tree)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import (
+        TacotronBatcher, WaveNetBatcher)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.checkpoints import (
+        restore_into_state)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.tacotron_task import (
+        TacotronTask, batch_to_device as taco_to_device)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
+        WaveNetTask, batch_to_device)
+
+    out = {"card": smi, "note": "two ranks share one card over gloo: "
+           "correctness and overheads, not scaling across cards"}
+    size_args = [a for k, v in DATA_OVERRIDES.items()
+                 for a in (f"--{k}", str(v))]
+    runs = {k: os.path.join(tmp, f"mesh_{k}")
+            for k in ("plain", "one_rank", "two_ranks")}
+    vocoder = ["--data_dir", data, "--load_path", WN_MOON, "--num_steps",
+               str(DATA_START + MESH_CLI_STEPS), "--hparams", MESH_HPARAMS,
+               *size_args]
+    launch2 = ["-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2"]
+    taco_runs = {k: os.path.join(tmp, f"mesh_taco_{k}")
+                 for k in ("one", "two")}
+    tacotron = ["--data_paths", ",".join(dirs), "--num_steps",
+                str(MESH_CLI_STEPS), "--hparams", MESH_TACO_HPARAMS,
+                *TACO_CLI_ARGS]
+    with phase(f"mesh (a), (b) and (d), side by side: resume wn_moon for "
+               f"{MESH_CLI_STEPS} steps through train_vocoder, plain, "
+               f"--use_mesh as one process, --use_mesh on 2 gloo ranks; "
+               f"train_tacotron --use_mesh from seeded weights, "
+               f"{MESH_CLI_STEPS} steps, on 2 ranks and on 1"):
+        done = run_side_by_side({
+            "plain": ["-m", f"{PKG}.train_vocoder", "--log_dir",
+                      runs["plain"], *vocoder],
+            "one_rank": ["-m", f"{PKG}.train_vocoder", "--log_dir",
+                         runs["one_rank"], *vocoder, "--use_mesh"],
+            "two_ranks": [*launch2, "-m", f"{PKG}.train_vocoder",
+                          "--log_dir", runs["two_ranks"], *vocoder,
+                          "--use_mesh"],
+            "taco_one": ["-m", f"{PKG}.train_tacotron", "--log_dir",
+                         taco_runs["one"], *tacotron],
+            "taco_two": [*launch2, "-m", f"{PKG}.train_tacotron",
+                         "--log_dir", taco_runs["two"], *tacotron,
+                         "--use_mesh"]}, dev, tmp)
+        for k, (text, secs) in done.items():
+            backend = [ln for ln in text.splitlines() if "backend " in ln]
+            log(f"  {k}: rc 0 in {secs:.1f} s wall; {backend}")
+            out.setdefault("cli_wall_s", {})[k] = secs
+        one_backend = "nccl" if dev.type == "cuda" else "gloo"
+        if f"backend {one_backend}" not in done["one_rank"][0] or any(
+                "backend gloo" not in done[k][0]
+                for k in ("two_ranks", "taco_two")):
+            raise AssertionError("the backend rule was not followed")
+        out["a"] = hold_runs("(a) one-rank mesh vs plain", runs["one_rank"],
+                             runs["plain"], MESH_FIRST_TOL, MESH_LATER_TOL)
+        out["b"] = hold_runs("(b) 2 ranks vs the one-rank mesh",
+                             runs["two_ranks"], runs["one_rank"],
+                             MESH_FIRST_TOL, MESH_LATER_TOL)
+        out["d_cli"] = hold_runs("(d) train_tacotron, 2 ranks vs 1",
+                                 taco_runs["two"], taco_runs["one"],
+                                 MESH_FIRST_TOL, MESH_LATER_TOL)
+        for run in (runs["two_ranks"], taco_runs["two"]):
+            with open(os.path.join(run, "train.log"), encoding="utf-8") as f:
+                if f.read().count("first loss fetched") != 1:
+                    raise AssertionError(f"{run}: train.log is not rank "
+                                         "0's alone")
+
+    mel_path = os.path.join(tmp, "mesh_serve.mel.npy")
+    np.save(mel_path, np.load(E2E_MEL)[:MESH_SERVE_FRAMES])
+    serve = (
+        "import json, sys\n"
+        f"from {PKG} import generate\n"
+        f"from {PKG}.ops.wavenet_gen import wavenet_generate\n"
+        "generate.main(sys.argv[1:])\n"
+        "print(json.dumps(dict(wavenet_generate.variant_launches)))\n")
+
+    cfg = _wavenet_cfg()
+    with phase("mesh (c): the WaveNet mesh step at the wn_moon width, "
+               "resumed, f32: (1, 2) and (2, 1) on 2 gloo ranks vs one "
+               "process"):
+        batch = next(iter(WaveNetBatcher([data], cfg, seed=13)))
+        batch = {"input_wav": batch.input_wav,
+                 "local_condition": batch.local_condition}
+        task = WaveNetTask(cfg, device=dev)
+        state, _ = restore_into_state(task.init_state(0), WN_MOON, None)
+        tree = to_jax_tree(state)
+        b = batch_to_device(batch, dev)
+        o_shape = (len(batch["input_wav"]),
+                   min(MESH_F64_T, batch["input_wav"].shape[1])
+                   - cfg.wavenet.receptive_field, cfg.wavenet.out_channels)
+        cot = np.random.RandomState(5).standard_normal(o_shape).astype(
+            np.float32)
+        graph1, one = wavenet_grads64(task, state.params, b,
+                                      torch.from_numpy(cot).to(dev))
+        new, want = task.train_step(state, b)
+        holder = [new]
+
+        def step():
+            holder[0], m = task.train_step(holder[0], b)
+            float(m["loss"])
+        timing = {"1": timed_steps(step, MESH_REPS, dev)}
+        del task, state, new, holder, b
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        S = cfg.wavenet.skip_channels
+        for n_data, n_model in ((1, 2), (2, 1)):
+            res = run_ranks(mesh_wavenet_rank, 2, n_data, n_model, tree,
+                            batch, cot, dev.type)
+            r = res[0]
+            t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+            err = leaf_error(t(r["graph"]), graph1)
+            loss_err = leaf_error(t(r["grads"]), one)
+            rel = {k: abs(r["metrics"][k] / float(want[k]) - 1)
+                   for k in ("loss", "grad_norm")}
+            shapes = res[0]["shapes"]
+            log(f"  ({n_data}, {n_model}) {r['backend']}: float64 "
+                f"gradients of each leaf's largest: the graph's {err:.3e}, "
+                f"the loss's {loss_err:.3e} (bound {MESH_GRAD_TOL:g}); the "
+                f"f32 step's loss {rel['loss']:.3e}, grad_norm "
+                f"{rel['grad_norm']:.3e} relative; rank 0 holds {shapes}; "
+                f"{r['timing']} [{smi}]")
+            split = (shapes["layer_0_skip_kernel"][1] == S // n_model
+                     and shapes["layer_0_skip_bias"] == (S // n_model,)
+                     and shapes["post_1/kernel"][0] == S // n_model
+                     and shapes["post_2/kernel"][0] == S)
+            same = all(abs(x["metrics"][k] - v) <= 1e-6 * abs(v)
+                       for x in res for k, v in r["metrics"].items())
+            if not (max(err, loss_err) <= MESH_GRAD_TOL
+                    and rel["loss"] <= 1e-5 and split and same):
+                raise AssertionError(f"({n_data}, {n_model}) disagrees "
+                                     "with one process")
+            timing[f"{n_data}x{n_model}"] = r["timing"]
+            out[f"c_{n_data}x{n_model}"] = {
+                "graph_grad_err_f64": err, "loss_grad_err_f64": loss_err,
+                "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                "rank0_shapes": shapes}
+        out["e_wavenet"] = timing
+
+    tcfg = _tacotron_cfg()
+    with phase("mesh (d): Tacotron data parallel at the both_r2 width, f32, "
+               f"B={MESH_TACO_B}: the library step on 2 ranks vs 1 with the "
+               "same global masks"):
+        tb = next(iter(TacotronBatcher(dirs, tcfg, batch_size=MESH_TACO_B)))
+        tb = {k: np.asarray(v) for k, v in vars(tb).items()}
+        task = TacotronTask(tcfg, is_randomly_initialized=True, device=dev)
+        state = task.init_state(MESH_TACO_SEED)
+        b = taco_to_device(tb, dev)
+        draws = task.draw(b, torch.Generator(dev).manual_seed(
+            MESH_TACO_SEED), state.step)
+        losses, one, stats = task.grads(state.params, state.batch_stats, b,
+                                        draws)
+        gen = torch.Generator(dev).manual_seed(MESH_TACO_SEED)
+        holder = [state]
+
+        def step():
+            holder[0], m = task.train_step(holder[0], b, generator=gen)
+            float(m["loss"])
+        timing = {"1": timed_steps(step, MESH_REPS, dev)}
+        one = {k: v.cpu().numpy() for k, v in one.items()}
+        stats = {k: v.cpu().numpy() for k, v in stats.items()}
+        loss1 = float(losses["loss"])
+        del task, state, holder, b, draws
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res = run_ranks(mesh_tacotron_rank, 2, tb, dev.type)
+        r = res[0]
+        diff = sum(float(((r["grads"][k] - g) ** 2).sum())
+                   for k, g in one.items())
+        norm = sum(float((g ** 2).sum()) for g in one.values())
+        grad_l2 = (diff / norm) ** 0.5
+        # A running mean is 0.01 x a batch mean that may cancel: means are
+        # held against the largest of them all (tests/test_torch_cuda.py).
+        means = max(float(np.abs(v).max()) for k, v in stats.items()
+                    if k.endswith("running_mean"))
+        stat_err = max(float(np.abs(r["stats"][k] - v).max()) / (
+            means if k.endswith("running_mean") else float(np.abs(v).max()))
+            for k, v in stats.items())
+        loss_rel = abs(r["loss"] / loss1 - 1)
+        log(f"  2 ranks ({r['backend']}) vs 1: loss {loss_rel:.3e} "
+            f"relative, gradient {grad_l2:.3e} in L2 (bound "
+            f"{TACO_GRAD_TOL:g}), batch_stats {stat_err:.3e} (bound "
+            f"{MESH_STATS_TOL:g}); {r['timing']} [{smi}]")
+        if not (grad_l2 <= TACO_GRAD_TOL and stat_err <= MESH_STATS_TOL
+                and loss_rel <= 1e-5
+                and abs(res[1]["loss"] / r["loss"] - 1) <= 1e-6):
+            raise AssertionError("(d) 2 ranks disagree with 1")
+        timing["2x1"] = r["timing"]
+        out["d"] = {"loss_rel": loss_rel, "grad_l2_rel": grad_l2,
+                    "batch_stats_err": stat_err}
+        out["e_tacotron"] = timing
+
+    with phase("mesh (b): the generate CLI serves the 2-rank vocoder run, "
+               "one kernel launch"):
+        done = run_side_by_side({
+            "generate": ["-c", serve, "--load_path", runs["two_ranks"],
+                         "--mel", mel_path, "--out",
+                         os.path.join(tmp, "mesh_served.wav")]}, dev, tmp)
+        text, secs = done["generate"]
+        launches = json.loads(text.strip().splitlines()[-1])
+        log(f"  rc 0 in {secs:.1f} s wall; launches {launches}")
+        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+            raise AssertionError(f"generate launched {launches}")
+        out["launches"] = launches
+
+    with phase("mesh (e): times, two ranks sharing the card"):
+        for name in ("e_wavenet", "e_tacotron"):
+            for k, t in out[name].items():
+                log(f"  {name[2:]} {k}: {t['s_per_step']:.4f} s/step, "
+                    f"collectives {t['collective_share']:.1%} of a clocked "
+                    f"step ({t['collectives_per_step']:.0f} per step) "
+                    f"[{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2658,7 +3243,7 @@ def main() -> int:
     with phase("MoL head, f32: kernel vs plain twin, full width, B=4"), \
             torch.no_grad():
         packed = packs["mol-float32"]
-        B, T = 4, 1024
+        B, T = 4, 512
         proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 1)
         k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
@@ -2686,7 +3271,7 @@ def main() -> int:
         errors["mol-float32"].append(compare(
             f"(c) stochastic, same noise, teacher-forced {T}", k, p))
 
-        B, T = 8, 2048
+        B, T = 8, 512
         proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 3)
         k = wavenet_generate(packed, proj,
@@ -2707,7 +3292,7 @@ def main() -> int:
     with phase("softmax head, f32: kernel vs plain twin, full width, B=4"), \
             torch.no_grad():
         packed = packs["softmax-float32"]
-        B, T = 4, 1024
+        B, T = 4, 512
         proj = lc_proj_for("softmax-float32", B, T)
         primed = prime_classes(B, T, 11)
         k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
@@ -2715,7 +3300,7 @@ def main() -> int:
         p = generate_plain(packed, proj, deterministic=True, primed=primed,
                            prime_len=T)
         err, agree_a = compare_classes(
-            "(a) deterministic, teacher-forced 1024", k, p, CLASS_AGREE_F32)
+            f"(a) deterministic, teacher-forced {T}", k, p, CLASS_AGREE_F32)
         errors["softmax-float32"].append(err)
 
         proj_b = proj[:, :256].contiguous()
@@ -2732,12 +3317,12 @@ def main() -> int:
         p = generate_plain(packed, proj, noise=noise, primed=primed,
                            prime_len=T, temperature=0.7)
         err, agree_c = compare_classes(
-            "(c) stochastic T=0.7, same noise, teacher-forced 1024", k, p,
+            f"(c) stochastic T=0.7, same noise, teacher-forced {T}", k, p,
             CLASS_AGREE_F32)
         errors["softmax-float32"].append(err)
         agreement["softmax-float32"] = min(agree_a, agree_c)
 
-        B, T = 8, 2048
+        B, T = 8, 512
         proj = lc_proj_for("softmax-float32", B, T)
         primed = prime_classes(B, T, 13)
         k = wavenet_generate(packed, proj,
@@ -2758,7 +3343,7 @@ def main() -> int:
 
     with phase("bf16 weights: kernel vs bf16 twin, full width, B=4"), \
             torch.no_grad():
-        B, T = 4, 1024
+        B, T = 4, 512
         signals = {"mol": prime_signal(B, T, 21),
                    "softmax": prime_classes(B, T, 22)}
         for head, primed in signals.items():
@@ -2966,12 +3551,14 @@ def main() -> int:
         dirs = taco_speaker_dirs(tmp, corpus)
         taco_train = taco_train_phases(dev, smi, tmp, dirs)
         attention = attention_phases(dev, smi, tmp, dirs)
+        mesh = mesh_phases(dev, smi, tmp, corpus, dirs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     data["preprocess"] = preprocess
     cli_launches = data.pop("launches")
     taco_cli_launches = taco_train.pop("launches")
     simple_cli_launches = attention.pop("launches")
+    mesh_cli_launches = mesh.pop("launches")
 
     kernels = []
     for v, t in timing.items():
@@ -3007,6 +3594,8 @@ def main() -> int:
             entry["launches_tacotron_train_cli"] = taco_cli_launches[v]
         if v in simple_cli_launches:
             entry["launches_simple_cli"] = simple_cli_launches[v]
+        if v in mesh_cli_launches:
+            entry["launches_mesh_cli"] = mesh_cli_launches[v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -3020,6 +3609,7 @@ def main() -> int:
     print(json.dumps({"data": data}))
     print(json.dumps({"taco_train": taco_train}))
     print(json.dumps({"attention": attention}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3029,4 +3619,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

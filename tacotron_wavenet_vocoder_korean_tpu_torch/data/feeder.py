@@ -5,7 +5,8 @@ A daemon thread draws batches from the batcher and keeps up to
 ``buffer_size`` of them queued, already on the device, so the training
 step never waits on the host.  On a card, a host batch is copied into
 pinned memory and from there to the card on a side stream, with an event
-per batch; the consumer's stream waits on that event.  Batches already on
+per batch; the consumer's stream waits on that event.  The thread works
+on the prefetcher's card (a rank's own on a mesh).  Batches already on
 the device (the device store's) pass through.  An error in the thread is
 raised in the consumer.
 """
@@ -80,6 +81,9 @@ class DevicePrefetcher:
 
     def _run(self) -> None:
         try:
+            if self._stream is not None:
+                # this thread's pinned copies and events on this rank's card
+                torch.cuda.set_device(self.device)
             for batch in self._batcher:
                 if self._stop.is_set():
                     return

@@ -21,6 +21,13 @@ batches are numpy ``WaveNetBatch``es.  With ``device_store=True`` every
 padded clip lives on the device (audio float32, mel float16, as in JAX)
 and a batch is cut there by indexing with B clip ids and B frame offsets,
 the only data that crosses to the device per step.
+
+With ``mesh=`` (a ``parallel.Mesh``) every rank runs the same
+``RandomState`` stream, so every rank draws the same global batch of
+``batch_size`` examples, and keeps its rows ``[d * B / n_data, (d + 1) * B
+/ n_data)``, ``d`` its data coordinate; a Tacotron batch is padded to the
+global batch's bucket.  The device store is held whole on every rank (the
+JAX store shards its example dim over the data axis instead).
 """
 from __future__ import annotations
 
@@ -44,6 +51,19 @@ PAD_VALUE = 0
 def round_up(x: int, multiple: int) -> int:
     r = x % multiple
     return x if r == 0 else x + multiple - r
+
+
+def mesh_rows(batch_size: int, mesh) -> slice:
+    """This rank's rows of a global batch of ``batch_size`` (all of them
+    without a mesh); ``batch_size % n_data`` must be 0."""
+    if mesh is None or mesh.n_data == 1:
+        return slice(None)
+    if batch_size % mesh.n_data:
+        raise ValueError(f"batch_size={batch_size} does not split over "
+                         f"{mesh.n_data} data ranks")
+    n = batch_size // mesh.n_data
+    d = mesh.coords[0]
+    return slice(d * n, (d + 1) * n)
 
 
 @dataclass
@@ -104,7 +124,8 @@ class TacotronBatcher:
     bucketed maxima; a batch is a dict of tensors there with
     ``train.tacotron_task.batch_to_device``'s keys, gathered by indexing
     with its B ids and cut to its bucket.  ``store_bytes`` is the store's
-    size."""
+    size.  ``mesh``: this rank's rows of each batch (module docstring),
+    on the mesh's device."""
 
     def __init__(self, data_dirs: Sequence[str], cfg: Config,
                  data_type: str = "train", batch_size: Optional[int] = None,
@@ -112,7 +133,7 @@ class TacotronBatcher:
                  apply_filter: Optional[bool] = None,
                  token_bucket: int = 16, frame_bucket_iters: int = 10,
                  seed: Optional[int] = None, device_store: bool = False,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, mesh=None):
         if data_type not in ("train", "test"):
             raise ValueError(f"data_type={data_type!r}")
         if device_store and data_type == "test":
@@ -120,6 +141,7 @@ class TacotronBatcher:
         self.cfg = cfg
         self.data_type = data_type
         self.batch_size = batch_size or cfg.tacotron.batch_size
+        self.rows = mesh_rows(self.batch_size, mesh)
         self.batches_per_group = batches_per_group
         self.token_bucket = token_bucket
         self.frame_bucket = cfg.tacotron.reduction_factor * frame_bucket_iters
@@ -157,7 +179,7 @@ class TacotronBatcher:
 
         self.device_store = device_store
         if device_store:
-            self.device = resolve_device(device)
+            self.device = resolve_device(mesh.device if mesh else device)
             self._build_store()
 
     # ------------------------------------------------------------------
@@ -299,10 +321,11 @@ class TacotronBatcher:
         if self.device_store:
             max_tokens, max_frames = self._bucket(max(x[1] for x in batch),
                                                   max(x[2] for x in batch))
-            return self._gather(np.asarray([x[0] for x in batch]),
+            return self._gather(np.asarray([x[0] for x in batch[self.rows]]),
                                 max_tokens, max_frames)
         max_tokens, max_frames = self._bucket(max(len(x[0]) for x in batch),
                                               max(x[-1] for x in batch))
+        batch = batch[self.rows]
         B = len(batch)
         inputs = np.full((B, max_tokens), PAD_VALUE, np.int32)
         lengths = np.zeros(B, np.int32)
@@ -362,18 +385,21 @@ class WaveNetBatcher:
     the keys of ``train.wavenet_task.batch_to_device``: ``input_wav`` [B,
     T, 1] and ``local_condition`` [B, T // hop, num_mels] float32,
     ``speaker_id`` [B] int64.  ``store_bytes`` is the store's size.
+    ``mesh``: this rank's rows of each batch (module docstring), on the
+    mesh's device.
     """
 
     def __init__(self, data_dirs: Sequence[str], cfg: Config,
                  batch_size: Optional[int] = None, gc_enable: bool = False,
                  seed: Optional[int] = None, batches_per_group: int = 32,
                  device_store: bool = False, data_type: str = "train",
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, mesh=None):
         if data_type not in ("train", "test"):
             raise ValueError(f"data_type={data_type!r}")
         self.data_type = data_type
         self.cfg = cfg
         self.batch_size = batch_size or cfg.wavenet.batch_size
+        self.rows = mesh_rows(self.batch_size, mesh)
         self.gc_enable = gc_enable
         self.batches_per_group = batches_per_group
         self.hop_size = cfg.audio.hop_size
@@ -443,7 +469,7 @@ class WaveNetBatcher:
 
         self.device_store = device_store
         if device_store:
-            self.device = resolve_device(device)
+            self.device = resolve_device(mesh.device if mesh else device)
             self._build_store()
 
     # ------------------------------------------------------------------
@@ -539,7 +565,7 @@ class WaveNetBatcher:
                                 for _ in range(self._per_dir))
             self.rng.shuffle(examples)
             for i in range(0, len(examples) - n + 1, n):
-                batch = examples[i:i + n]
+                batch = examples[i:i + n][self.rows]
                 if self.device_store:
                     yield self._gather(np.array([b[0] for b in batch]),
                                        np.array([b[1] for b in batch]))

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum
+
 Dtype = Optional[torch.dtype]
 # New running statistics of a training forward, by module.
 BNUpdates = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
@@ -208,9 +210,16 @@ class BatchNormConv1d(nn.Module):
     ``0.99 * old + 0.01 * batch`` (flax's momentum 0.99, the biased
     variance too, unlike ``torch.nn.BatchNorm1d``'s update), are returned
     through ``bn_updates``: ``bn_updates[self] = (mean, var)``, detached;
-    the module's buffers are left as they were."""
+    the module's buffers are left as they were.
+
+    ``stats_mesh``: when set (a ``parallel.Mesh``), this rank holds a
+    shard of the batch, and the training statistics are its sums over the
+    data group divided by the global B x T (flax's statistics over JAX's
+    global batch), so every rank normalises alike and keeps equal running
+    statistics."""
 
     MOMENTUM = 0.99
+    stats_mesh = None
 
     def __init__(self, in_dim: int, channels: int, kernel_size: int,
                  activation: Optional[str] = None, dtype: Dtype = None):
@@ -233,9 +242,14 @@ class BatchNormConv1d(nn.Module):
         bn = self.bn
         yf = y.float()
         if train:
-            mean = yf.mean(dim=(0, 2))
-            var = torch.clamp((yf * yf).mean(dim=(0, 2)) - mean * mean,
-                              min=0.0)
+            if self.stats_mesh is None:
+                mean, mean_sq = yf.mean(dim=(0, 2)), (yf * yf).mean(dim=(0, 2))
+            else:
+                mesh = self.stats_mesh
+                mean, mean_sq = all_reduce_sum(torch.stack(
+                    [yf.sum(dim=(0, 2)), (yf * yf).sum(dim=(0, 2))]), mesh,
+                    DATA_AXIS) / (yf.shape[0] * yf.shape[2] * mesh.n_data)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if bn_updates is not None:
                 m = self.MOMENTUM
                 bn_updates[self] = (

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import WaveNetConfig
+from ..parallel.mesh import (MODEL_AXIS, Mesh, all_reduce_sum, copy_to_model,
+                             reduce_from_model)
 from .mixture import discretized_mix_logistic_loss
 
 Params = Dict[str, torch.Tensor]
@@ -143,17 +145,47 @@ class WaveNet(torch.nn.Module):
     accumulates in f32 and rounds once (XLA on a CPU may round partial
     sums), and the skip sum is one bf16 product with f32 accumulation
     where JAX adds 50 bf16 terms one by one.
+
+    With a ``mesh`` of ``n_model`` > 1 the skip/post stack is tensor
+    parallel, as the JAX task's ``WAVENET_TP_RULES`` place it: ``params``
+    holds this rank's ``S / n_model`` columns of every
+    ``layer_i_skip_kernel`` (and ``_bias``) and rows of ``post_1``'s
+    kernel.  The layer outputs enter through ``copy_to_model``, the relu
+    runs on the local skip channels, and ``post_1``'s partial products
+    are summed by ``reduce_from_model`` in float32 before the bias and
+    the cast to the compute type.  Weight norm: a split skip kernel's
+    column norms stay local and take their slice of the replicated
+    ``_g``; ``post_1``'s norm runs over the split rows, so its sum of
+    squares is summed over the model group.  A replicated leaf used in
+    the split part enters through ``copy_to_model``, so its gradient is
+    whole on every rank.  Everything else is replicated and computed on
+    every rank.
     """
 
-    def __init__(self, cfg: WaveNetConfig):
+    def __init__(self, cfg: WaveNetConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None and mesh.n_model > 1 else None
+        if self.mesh and cfg.skip_channels % self.mesh.n_model:
+            raise ValueError(f"skip_channels={cfg.skip_channels} does not "
+                             f"split over {self.mesh.n_model} model ranks")
 
     def _weight(self, params: Params, name: str, dt: torch.dtype
                 ) -> torch.Tensor:
-        if self.cfg.weight_normalization:
-            return wn_weight(params[name + "_v"], params[name + "_g"]).to(dt)
-        return params[name].to(dt)
+        if not self.cfg.weight_normalization:
+            return params[name].to(dt)
+        v, g = params[name + "_v"], params[name + "_g"]
+        mesh = self.mesh
+        if mesh is None:
+            return wn_weight(v, g).to(dt)
+        if name == "post_1_kernel":               # rows split
+            sq = torch.sum(torch.square(v), dim=0, keepdim=True)
+            norm = torch.sqrt(all_reduce_sum(sq, mesh, MODEL_AXIS) + 1e-12)
+            return (v * (copy_to_model(g, mesh) / norm)).to(dt)
+        if v.shape[-1] < g.shape[-1]:             # columns split
+            n, m = v.shape[-1], mesh.index(MODEL_AXIS)
+            g = copy_to_model(g, mesh)[m * n:(m + 1) * n]
+        return wn_weight(v, g).to(dt)
 
     def forward(self, params: Params, audio: torch.Tensor, mel: torch.Tensor,
                 speaker_id: Optional[torch.Tensor] = None
@@ -222,7 +254,10 @@ class WaveNet(torch.nn.Module):
 
         n = len(cfg.dilations)
         w_skip = torch.cat([w(f"layer_{i}_skip_kernel") for i in range(n)])
-        skip = torch.matmul(w_skip.t(), torch.cat(outs, 1))    # [B, S, ow]
+        outs = torch.cat(outs, 1)
+        if self.mesh is not None:
+            outs = copy_to_model(outs, self.mesh)
+        skip = torch.matmul(w_skip.t(), outs)            # [B, S_local, ow]
         if cfg.use_biases:
             skip = skip + torch.stack([params[f"layer_{i}_skip_bias"]
                                        for i in range(n)]).sum(0).to(dt)[:, None]
@@ -235,7 +270,12 @@ class WaveNet(torch.nn.Module):
             names = [("post_1/kernel", "post_1/bias"),
                      ("post_2/kernel", "post_2/bias")]
         k1, b1 = names[0]
-        out = skip @ w(k1)
+        if self.mesh is None:
+            out = skip @ w(k1)
+        else:
+            acc = torch.float32 if dt == torch.bfloat16 else dt
+            out = reduce_from_model(skip.to(acc) @ w(k1).to(acc),
+                                    self.mesh).to(dt)
         if cfg.use_biases:
             out = out + params[b1].to(dt)
         k2, b2 = names[1]
@@ -253,12 +293,16 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def wavenet_loss(cfg: WaveNetConfig, outputs: Dict[str, torch.Tensor],
-                 params: Optional[Params] = None) -> Dict[str, torch.Tensor]:
+                 params: Optional[Params] = None, sharded: Sequence[str] = (),
+                 mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Mean discretized-MoL NLL (scalar input, 65,536 bins) or mean softmax
     cross-entropy (``mulaw-quantize``), plus, when
     ``l2_regularization_strength`` > 0 and ``params`` are given, that times
     the sum of ``p**2 / 2`` over every parameter whose name lacks
-    ``"bias"``.  Returns ``loss`` (the total) and, with L2, ``l2_loss``."""
+    ``"bias"``.  Returns ``loss`` (the total) and, with L2, ``l2_loss``.
+    The leaves named in ``sharded`` are this rank's slices: their sum is
+    summed over ``mesh``'s model group, the replicated ones counted
+    once."""
     raw, target = outputs["raw_output"], outputs["target"]
     if cfg.scalar_input:
         loss = torch.mean(discretized_mix_logistic_loss(
@@ -268,7 +312,11 @@ def wavenet_loss(cfg: WaveNetConfig, outputs: Dict[str, torch.Tensor],
     metrics = {"loss": loss}
     if params is not None and cfg.l2_regularization_strength > 0:
         l2 = sum(torch.sum(p ** 2) / 2 for name, p in params.items()
-                 if "bias" not in name)
+                 if "bias" not in name and name not in sharded)
+        if sharded:
+            l2 = l2 + reduce_from_model(sum(
+                torch.sum(params[name] ** 2) / 2 for name in sharded
+                if "bias" not in name), mesh)
         metrics["l2_loss"] = l2
         metrics["loss"] = loss + cfg.l2_regularization_strength * l2
     return metrics

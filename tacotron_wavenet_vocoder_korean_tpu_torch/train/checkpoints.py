@@ -278,14 +278,22 @@ class CheckpointManager:
     ``max_to_keep`` of them kept (all when it is None).  ``save`` takes the port's train state
     (or any tree of dicts, tuples and tensors; ``convert.to_jax_tree``
     lays it out as the JAX tree) and writes it into a temporary directory
-    that is renamed to ``<step>`` when complete, as Orbax does."""
+    that is renamed to ``<step>`` when complete, as Orbax does.
 
-    def __init__(self, log_dir: str, max_to_keep: Optional[int] = 3):
+    On a ``mesh`` every rank calls ``save`` with the full state (a
+    sharded one gathered first, e.g. by ``WaveNetTask.gather_state``):
+    rank 0 writes it, then every rank meets at a barrier.  ``restore``
+    reads on every rank (a tarball into each rank's own temporary
+    directory); the caller keeps its shard."""
+
+    def __init__(self, log_dir: str, max_to_keep: Optional[int] = 3,
+                 mesh=None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep={max_to_keep}")
         self.log_dir = os.path.abspath(log_dir)
         self.ckpt_dir = os.path.join(self.log_dir, "ckpt")
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def all_steps(self) -> List[int]:
@@ -297,6 +305,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Any) -> None:
+        if self.mesh is None:
+            self._write(step, state)
+            return
+        if self.mesh.is_main:
+            self._write(step, state)
+        self.mesh.barrier()
+
+    def _write(self, step: int, state: Any) -> None:
         final = os.path.join(self.ckpt_dir, str(int(step)))
         if os.path.exists(final):
             raise FileExistsError(f"{final} exists")

@@ -21,9 +21,12 @@ learning rate.  They are not used.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Collection, Dict, List, NamedTuple,
+                    Optional, Tuple)
 
 import torch
+
+from ..parallel.mesh import all_reduce
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -148,18 +151,31 @@ def scale_by_learning_rate(schedule: Schedule) -> Transformation:
     return Transformation(init, update)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """The L2 norm of all leaves together."""
+def global_norm(tree: Params, sharded: Collection[str] = (),
+                mesh=None) -> torch.Tensor:
+    """The L2 norm of all leaves together.  The leaves named in
+    ``sharded`` are this rank's slices of leaves split over ``mesh``'s
+    model axis: their squares are summed over the model group, the
+    replicated leaves' counted once."""
     norms = torch._foreach_norm(list(tree.values()))
-    return torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    if not sharded:
+        return torch.sqrt(torch.sum(torch.stack(norms) ** 2))
+    sq = torch.stack(norms) ** 2
+    split = torch.tensor([k in sharded for k in tree], device=sq.device)
+    part = torch.sum(torch.where(split, sq, torch.zeros_like(sq)))
+    all_reduce(part, mesh.model_group)
+    return torch.sqrt(torch.sum(torch.where(split, torch.zeros_like(sq), sq))
+                      + part)
 
 
-def clip_by_global_norm(max_norm: float) -> Transformation:
+def clip_by_global_norm(max_norm: float, sharded: Collection[str] = (),
+                        mesh=None) -> Transformation:
     """Leaves scaled by ``max_norm / global_norm`` when the norm is not
-    below ``max_norm``; the state is optax's ``EmptyState()``."""
+    below ``max_norm``; the state is optax's ``EmptyState()``.
+    ``sharded`` and ``mesh`` as ``global_norm`` takes them."""
     def update(updates, state, params=None):
         keys = list(updates)
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, sharded, mesh)
         divisor = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                               g_norm)
         scale = torch.where(g_norm < max_norm, torch.ones_like(g_norm),

@@ -24,7 +24,16 @@ float32, ``mel_targets`` [B, T_out, num_mels] and ``linear_targets`` [B,
 T_out, num_freq], float16 or float32 (upcast in the loss, as in JAX).
 Dropout and scheduled sampling draw from a ``torch.Generator`` or take
 injected draws (:meth:`TacotronTask.draw`), since JAX's threefry stream is
-not reproduced.  The mesh is not ported.
+not reproduced.
+
+With a ``mesh`` (``parallel.make_mesh``, data parallel) the step is the
+JAX task's ``jit_train_step(mesh)`` written out per rank: each rank takes
+its rows of the global batch (the batcher cuts them), batch norm's
+training statistics are summed over the data group (flax's statistics
+over JAX's global batch), every rank draws the global batch's dropout and
+scheduled-sampling masks from the same generator and keeps its rows, and
+the gradients and losses are averaged over the data group in one
+collective.  The state is replicated.
 """
 from __future__ import annotations
 
@@ -39,8 +48,10 @@ from ..convert import (fuse_gru_params, seeded_tacotron_params,
                        state_from_jax, tacotron_scopes, tacotron_skeleton,
                        tacotron_to_jax)
 from ..device import no_tf32, resolve_device
+from ..models.modules import BatchNormConv1d
 from ..models.tacotron import (learning_rate_schedule,
                                scheduled_sampling_prob, tacotron_loss)
+from ..parallel.mesh import DATA_AXIS, Mesh, all_reduce_mean
 from . import optim
 
 Tensors = Dict[str, torch.Tensor]
@@ -71,11 +82,17 @@ class TacotronTask:
 
     def __init__(self, cfg: Config, vocab_size: int = 80,
                  is_randomly_initialized: bool = False,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.vocab_size = vocab_size
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        self.device = resolve_device(mesh.device if mesh else device)
         self.model = tacotron_skeleton(cfg.tacotron, cfg.audio, vocab_size)
+        if self.mesh is not None:
+            for m in self.model.modules():
+                if isinstance(m, BatchNormConv1d):
+                    m.stats_mesh = self.mesh
         self.lr_schedule = learning_rate_schedule(cfg.tacotron,
                                                   is_randomly_initialized)
         t = cfg.tacotron
@@ -127,17 +144,23 @@ class TacotronTask:
         t = self.cfg.tacotron
         B, T_in = batch["inputs"].shape
         T_dec = batch["mel_targets"].shape[1] // t.reduction_factor
+        # On a mesh: the global batch's draws, this rank's rows of them.
+        n, d = ((self.mesh.n_data, self.mesh.index(DATA_AXIS))
+                if self.mesh else (1, 0))
+        rows = slice(d * B, (d + 1) * B)
         out: Dict[str, Any] = {}
         if t.dropout_prob > 0:
-            out["encoder_prenet_masks"] = self.model.draw_encoder_masks(
-                B, T_in, generator)
-            out["prenet_masks"] = self.model.draw_prenet_masks(
-                T_dec, B, generator)
+            out["encoder_prenet_masks"] = [
+                m[rows] for m in self.model.draw_encoder_masks(
+                    B * n, T_in, generator)]
+            out["prenet_masks"] = [
+                m[:, rows] for m in self.model.draw_prenet_masks(
+                    T_dec, B * n, generator)]
         if t.scheduled_sampling:
             p = scheduled_sampling_prob(t, step.to(generator.device))
-            out["use_teacher"] = torch.rand(
-                (T_dec, B), generator=generator,
-                device=generator.device) < p
+            out["use_teacher"] = (torch.rand(
+                (T_dec, B * n), generator=generator,
+                device=generator.device) < p)[:, rows]
         return out
 
     def forward(self, params: Tensors, batch_stats: Tensors,
@@ -201,6 +224,8 @@ class TacotronTask:
             draws = self.draw(batch, generator, state.step)
         losses, grads, new_stats = self.grads(state.params, state.batch_stats,
                                               batch, draws)
+        if self.mesh is not None:
+            grads, losses = all_reduce_mean(self.mesh, grads, losses)
         updates, new_opt = self.tx.update(grads, state.opt_state,
                                           state.params)
         new_params = optim.apply_updates(state.params, updates)

@@ -10,20 +10,42 @@ for them.  A batch is a dict of tensors on the task's device:
 ``input_wav`` [B, T, 1], ``local_condition`` [B, T // hop, num_mels] and,
 with speakers, ``speaker_id`` [B].
 
-The mesh and tensor-parallel parts of the JAX task are not ported yet.
+With a ``mesh`` (``parallel.make_mesh``) the step is the JAX task's
+``jit_train_step(mesh)`` written out per rank: each rank takes its rows of
+the global batch (the batchers cut them), the skip/post stack is tensor
+parallel over the model axis (``WAVENET_TP_RULES``, as in JAX; see
+``models.wavenet.WaveNet``), the gradients and losses are averaged over
+the data group in one collective, and the optimizer and the EMA run on
+the shards.  ``shard_state`` keeps this rank's slices of a full state;
+``gather_state`` and ``to_jax_tree`` rebuild the full one on every rank,
+so a checkpoint has the unsharded layout.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, NamedTuple, Tuple, Union
+from typing import Any, Collection, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..config import Config
-from ..convert import seeded_train_tree
+from ..convert import seeded_train_tree, to_jax_tree, train_param_shapes
 from ..device import no_tf32, resolve_device
 from ..models.wavenet import Params, WaveNet, wavenet_loss
+from ..parallel.mesh import (
+    MODEL_AXIS, Mesh, P, all_reduce_mean, gather_tree, shard_tree,
+    tree_placements)
 from . import optim
+
+# Tensor parallelism over the model axis, the JAX task's rules: every
+# layer's skip projection column-parallel (its kernel's columns, its bias),
+# post_1 row-parallel; the first rule that matches a leaf's path and fits
+# its shape wins, so a 1-D weight-norm ``_g`` stays replicated, and the
+# Adam moments and the EMA are placed as their parameters.
+WAVENET_TP_RULES = (
+    (r"layer_\d+_skip_kernel", P(None, MODEL_AXIS)),
+    (r"layer_\d+_skip_bias", P(MODEL_AXIS)),
+    (r"post_1.*kernel|post_1_kernel", P(MODEL_AXIS, None)),
+)
 
 
 class WaveNetTrainState(NamedTuple):
@@ -33,10 +55,12 @@ class WaveNetTrainState(NamedTuple):
     opt_state: Any                # optax's tree (train/optim.py)
 
 
-def make_optimizer(cfg: Config) -> optim.Transformation:
+def make_optimizer(cfg: Config, sharded: Collection[str] = (),
+                   mesh: Optional[Mesh] = None) -> optim.Transformation:
     """adam, sgd or rmsprop (with ``momentum``) on the exponential decay of
     ``learning_rate``, behind a clip of the global norm to 1.0 when
-    ``clip_gradients`` is set."""
+    ``clip_gradients`` is set (over the whole tensors when ``sharded``
+    names leaves split over ``mesh``'s model axis)."""
     w = cfg.wavenet
     schedule = optim.exponential_decay(w.learning_rate, w.decay_steps,
                                        w.decay_rate)
@@ -49,22 +73,35 @@ def make_optimizer(cfg: Config) -> optim.Transformation:
         raise KeyError(f"unknown optimizer {w.optimizer!r}")
     tx = opts[w.optimizer]()
     if w.clip_gradients:
-        tx = optim.chain(optim.clip_by_global_norm(1.0), tx)
+        tx = optim.chain(optim.clip_by_global_norm(1.0, sharded, mesh), tx)
     return tx
 
 
 class WaveNetTask:
     """The training graph, its loss, optimizer and EMA on ``device``
-    (``cuda`` unless the caller asks for another; no GPU raises).  f32
-    steps run with TF32 off, so the card computes what the CPU does."""
+    (``cuda`` unless the caller asks for another; no GPU raises), or on
+    ``mesh``'s device.  f32 steps run with TF32 off, so the card computes
+    what the CPU does."""
 
     def __init__(self, cfg: Config, gc_enable: bool = False,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.gc_enable = gc_enable
-        self.device = resolve_device(device)
-        self.model = WaveNet(cfg.wavenet)
-        self.tx = make_optimizer(cfg)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh else device)
+        self.model = WaveNet(cfg.wavenet, mesh)
+        self.rules = WAVENET_TP_RULES if mesh and mesh.n_model > 1 else ()
+        meta = {k: torch.empty(v, device="meta") for k, v in
+                train_param_shapes(cfg.wavenet, gc_enable).items()}
+        self.sharded = frozenset(
+            k for k, spec in tree_placements(mesh, meta, self.rules).items()
+            if any(a is not None for a in spec))
+        self.tx = make_optimizer(cfg, self.sharded, mesh)
+        # A ``P`` for every leaf of the full state.
+        self.placements = tree_placements(mesh, WaveNetTrainState(
+            torch.empty((), device="meta"), meta, meta, self.tx.init(meta)),
+            self.rules)
         self.lr_schedule = optim.exponential_decay(
             cfg.wavenet.learning_rate, cfg.wavenet.decay_steps,
             cfg.wavenet.decay_rate)
@@ -87,12 +124,33 @@ class WaveNetTask:
             ema_params={k: v.clone() for k, v in params.items()},
             opt_state=self.tx.init(params))
 
+    # ------------------------------------------------------------------
+    def shard_state(self, state: WaveNetTrainState) -> WaveNetTrainState:
+        """This rank's slices of a full state (after init or restore)."""
+        if not self.sharded:
+            return state
+        return shard_tree(self.mesh, state, self.placements)
+
+    def gather_state(self, state: WaveNetTrainState) -> WaveNetTrainState:
+        """The full state on every rank, from its shards (every rank
+        calls it)."""
+        if not self.sharded:
+            return state
+        return gather_tree(self.mesh, state, self.placements)
+
+    def to_jax_tree(self, state: WaveNetTrainState) -> Dict[str, Any]:
+        """The full state as the JAX ``TrainState``'s tree of numpy
+        arrays (``convert.to_jax_tree`` of ``gather_state``)."""
+        return to_jax_tree(self.gather_state(state))
+
+    # ------------------------------------------------------------------
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         sid = batch["speaker_id"] if self.gc_enable else None
         out = self.model(params, batch["input_wav"], batch["local_condition"],
                          sid)
-        losses = wavenet_loss(self.cfg.wavenet, out, params)
+        losses = wavenet_loss(self.cfg.wavenet, out, params, self.sharded,
+                              self.mesh)
         return losses["loss"], losses
 
     def grads(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -114,6 +172,8 @@ class WaveNetTask:
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[WaveNetTrainState, Dict[str, torch.Tensor]]:
         losses, grads = self.grads(state.params, batch)
+        if self.mesh is not None:
+            grads, losses = all_reduce_mean(self.mesh, grads, losses)
         updates, new_opt = self.tx.update(grads, state.opt_state,
                                           state.params)
         new_params = optim.apply_updates(state.params, updates)
@@ -121,7 +181,8 @@ class WaveNetTask:
             new_params, state.ema_params, 1.0 - self.cfg.wavenet.ema_decay)
         metrics = dict(losses)
         metrics["learning_rate"] = self.lr_schedule(state.step)
-        metrics["grad_norm"] = optim.global_norm(grads)
+        metrics["grad_norm"] = optim.global_norm(grads, self.sharded,
+                                                 self.mesh)
         return WaveNetTrainState(state.step + 1, new_params, new_ema,
                                  new_opt), metrics
 

@@ -20,7 +20,22 @@ the GPU unless ``--device cpu`` is given; with no GPU and no ``--device
 cpu`` it raises.  ``--model_type`` picks the speaker mode with several
 dirs (``deepvoice`` or ``simple``); the config's ``attention_type`` (any
 of the nine, by ``--hparams tacotron.attention_type=loc_sen``) picks the
-mechanism.  ``--use_mesh`` raises: it is not ported yet.
+mechanism.
+
+``--use_mesh`` trains data parallel over the ranks of the launch, one
+card each, as the JAX command does over its devices:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m tacotron_wavenet_vocoder_korean_tpu_torch.train_tacotron \
+        --use_mesh --data_paths ... --log_dir ...
+
+Each rank takes its rows of the global batch, batch norm's statistics are
+taken over the whole batch, dropout's masks are the global batch's, and
+the gradients and losses are averaged over the ranks
+(``train.tacotron_task``).  Rank 0 alone writes the run dir (logs,
+checkpoints, the eval's wav and PNG, ``best/``) and reads ``STOP``; its
+decision reaches every rank at the boundary syncs.  Without the launcher,
+``--use_mesh`` is a one-rank mesh.
 """
 from __future__ import annotations
 
@@ -41,6 +56,7 @@ from .data.loader import TacotronBatcher
 from .device import resolve_device
 from .dsp.audio_io import save_wav
 from .dsp.griffin_lim import inv_linear_spectrogram
+from .parallel import make_mesh
 from .text import EOS, PAD, TextCodec, sequence_to_text
 from .text.cleaners import get_cleaner
 from .text.hangul import hangul_to_jamo
@@ -105,7 +121,17 @@ def check_text_roundtrip(data_paths, cleaners: str, max_logged: int = 10
 
 
 def train(args) -> None:
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device) if args.use_mesh else None
+    try:
+        _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, mesh) -> None:
+    device = mesh.device if mesh else resolve_device(args.device)
+    main = mesh is None or mesh.is_main
     cfg = Config()
     if args.load_path:
         cfg = load_run_config(args.load_path)
@@ -126,12 +152,18 @@ def train(args) -> None:
 
     log_dir = args.log_dir or os.path.join(
         "logs", datetime.now().strftime("tacotron_%Y-%m-%d_%H-%M-%S"))
-    prepare_run_dir(log_dir, cfg)
     stop_path = os.path.join(log_dir, "STOP")
-    if os.path.exists(stop_path):   # a stale stop request from a prior run
-        os.remove(stop_path)
-    infolog.init(os.path.join(log_dir, "train.log"))
+    if mesh is not None:     # every rank has read the run's params.json
+        mesh.barrier()
+    if main:
+        prepare_run_dir(log_dir, cfg)
+        if os.path.exists(stop_path):   # a stale stop request
+            os.remove(stop_path)
+    infolog.init(os.path.join(log_dir, "train.log"),
+                 mesh.rank if mesh else 0)
     log(debug_string(cfg))
+    if mesh is not None:
+        log(mesh.describe())
     # Armed before any device work: the store upload, the init and the
     # restore can hang as a step can.
     hang_dog = HangWatchdog(cfg.train.hang_timeout_s, log_fn=log,
@@ -139,17 +171,19 @@ def train(args) -> None:
 
     use_store = cfg.train.device_resident_data
     train_batcher = TacotronBatcher(args.data_paths, cfg, "train",
-                                    device_store=use_store, device=device)
+                                    device_store=use_store, device=device,
+                                    mesh=mesh)
     if use_store:
         log(f"device-resident corpus store: "
-            f"{train_batcher.store_bytes / 1e6:.0f} MB on device")
+            f"{train_batcher.store_bytes / 1e6:.0f} MB on device"
+            + (" (whole on each rank)" if mesh else ""))
     test_batcher = TacotronBatcher(args.data_paths, cfg, "test")
     check_text_roundtrip(args.data_paths, cfg.tacotron.cleaners)
 
     vocab_size = TextCodec(cfg.tacotron.cleaners).vocab_size
     task = TacotronTask(cfg, vocab_size=vocab_size,
                         is_randomly_initialized=not args.initialize_path,
-                        device=device)
+                        device=device, mesh=mesh)
     # The JAX trainer draws one batch here, the example its init traces;
     # it is drawn here too, so that the stream that follows is JAX's.
     next(iter(train_batcher))
@@ -168,9 +202,12 @@ def train(args) -> None:
     generator = torch.Generator(device).manual_seed(
         cfg.train.random_seed * 1_000_003 + start_step)
 
-    ckpt = CheckpointManager(log_dir, max_to_keep=cfg.train.max_checkpoints)
-    save = lambda mgr, s: mgr.save(s, task.to_jax_tree(state))
-    metrics_writer = MetricsWriter(os.path.join(log_dir, "metrics.jsonl"))
+    ckpt = CheckpointManager(log_dir, max_to_keep=cfg.train.max_checkpoints,
+                             mesh=mesh)
+    save = lambda mgr, s: mgr.save(s, task.to_jax_tree(state) if main
+                                   else None)
+    metrics_writer = MetricsWriter(
+        os.path.join(log_dir, "metrics.jsonl") if main else None)
 
     # Best-heldout retention: the free-running loss over fixed held-out
     # batches at every test interval; the lowest one's checkpoint is kept
@@ -178,8 +215,9 @@ def train(args) -> None:
     best_mgr, fixed_eval_batches, best_json = None, [], None
     if cfg.train.best_eval_batches > 0:
         best_dir = os.path.join(log_dir, "best")
-        prepare_run_dir(best_dir, cfg)
-        best_mgr = CheckpointManager(best_dir, max_to_keep=1)
+        if main:
+            prepare_run_dir(best_dir, cfg)
+        best_mgr = CheckpointManager(best_dir, max_to_keep=1, mesh=mesh)
         best_json = os.path.join(best_dir, "best.json")
         fixed_iter = iter(TacotronBatcher(args.data_paths, cfg, "test"))
         fixed_eval_batches = [batch_to_device(next(fixed_iter), device)
@@ -236,7 +274,10 @@ def train(args) -> None:
             t_sync, steps_since_sync = now, 0
             loss_window.append(loss)
 
-            if os.path.exists(stop_path):
+            stop = main and os.path.exists(stop_path)
+            if mesh is not None:
+                stop = mesh.broadcast_flag(stop)
+            if stop:
                 log(f"STOP file found; saving checkpoint at step {step} "
                     "and exiting cleanly")
                 save(ckpt, step)
@@ -269,21 +310,26 @@ def train(args) -> None:
                     "test_linear_loss": eval_out["linear_loss"],
                     "gap_test_train": test_loss - loss,
                 })
-                save_and_plot(log_dir, step, eval_out, test_batch, cfg)
+                if main:
+                    save_and_plot(log_dir, step, eval_out, test_batch, cfg)
                 if best_mgr is not None:
                     fixed_loss = float(np.mean([
                         float(task.eval_step(state, b)["loss_without_coeff"])
                         for b in fixed_eval_batches]))
                     hang_dog.beat()
                     metrics_writer.write(step, {"best_eval_loss": fixed_loss})
-                    if fixed_loss < best_eval_loss:
+                    new_best = fixed_loss < best_eval_loss
+                    if mesh is not None:    # rank 0's call, on every rank
+                        new_best = mesh.broadcast_flag(new_best)
+                    if new_best:
                         best_eval_loss = fixed_loss
                         log(f"  new best heldout eval loss {fixed_loss:.5f}; "
                             f"retaining checkpoint at step {step}")
                         save(best_mgr, step)
-                        with open(best_json, "w", encoding="utf-8") as f:
-                            json.dump({"step": step,
-                                       "eval_loss": fixed_loss}, f)
+                        if main:
+                            with open(best_json, "w", encoding="utf-8") as f:
+                                json.dump({"step": step,
+                                           "eval_loss": fixed_loss}, f)
 
             if args.num_steps and step >= args.num_steps:
                 log(f"Reached num_steps={args.num_steps}; saving and exiting")
@@ -317,7 +363,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="comma-separated group.key=value config overrides "
                         "(e.g. train.sync_every=10,train.test_interval=50)")
     p.add_argument("--use_mesh", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="data parallel over the ranks of a "
+                        "torch.distributed.run launch")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--max_host_rss_gb", type=float, default=None,
                    help="recorded in train.max_host_rss_gb (the JAX "
@@ -325,10 +372,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = p.parse_args(argv)
     if args.load_path and args.initialize_path:
         p.error("--load_path and --initialize_path are mutually exclusive")
-    if args.use_mesh:
-        raise NotImplementedError(
-            "--use_mesh: multi-device training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
     train(args)
 
 

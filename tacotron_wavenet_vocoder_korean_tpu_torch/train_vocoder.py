@@ -13,7 +13,20 @@ starts from a run's weights and optimizer state at step 0.  The run dir
 ``ckpt/<step>/`` (read by the JAX package too).  ``touch LOG_DIR/STOP``
 saves and ends the run at the next sync boundary.  Runs on the GPU unless
 ``--device cpu`` is given; with no GPU and no ``--device cpu`` it raises.
-``--use_mesh`` raises: multi-device training is not ported yet.
+
+``--use_mesh`` trains data parallel over the ranks of the launch, one
+card each (``n_model`` 1, as the JAX command):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m tacotron_wavenet_vocoder_korean_tpu_torch.train_vocoder \
+        --use_mesh --data_dir ... --log_dir ...
+
+Each rank takes its rows of the global ``batch_size`` batch, and the
+gradients and losses are averaged over the ranks, so the run computes
+what one process computes (``parallel.make_mesh`` picks NCCL, or gloo for
+ranks sharing a card or with ``--device cpu``).  Rank 0 alone writes the
+run dir and reads ``STOP``; its decision reaches every rank at the
+boundary syncs.  Without the launcher, ``--use_mesh`` is a one-rank mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from .config import (
 from .data.feeder import DevicePrefetcher
 from .data.loader import WaveNetBatcher
 from .device import resolve_device
+from .parallel import make_mesh
 from .train.checkpoints import (
     CheckpointManager, load_run_config, prepare_run_dir, restore_into_state)
 from .train.wavenet_task import WaveNetTask, batch_to_device
@@ -42,7 +56,17 @@ CHECKPOINT_INTERVAL = 1000    # as the JAX trainer, not train.checkpoint_interva
 
 
 def train(args) -> None:
-    device = resolve_device(args.device)
+    mesh = make_mesh(device=args.device) if args.use_mesh else None
+    try:
+        _train(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _train(args, mesh) -> None:
+    device = mesh.device if mesh else resolve_device(args.device)
+    main = mesh is None or mesh.is_main
     cfg = Config()
     if args.load_path:
         cfg = load_run_config(args.load_path)
@@ -62,12 +86,18 @@ def train(args) -> None:
         cfg = overlay_from_strings(cfg, split_overrides(args.hparams))
 
     log_dir = args.log_dir or os.path.join("logs", "wavenet")
-    prepare_run_dir(log_dir, cfg)
     stop_path = os.path.join(log_dir, "STOP")
-    if os.path.exists(stop_path):   # a stale stop request from a prior run
-        os.remove(stop_path)
-    infolog.init(os.path.join(log_dir, "train.log"))
+    if mesh is not None:     # every rank has read the run's params.json
+        mesh.barrier()
+    if main:
+        prepare_run_dir(log_dir, cfg)
+        if os.path.exists(stop_path):   # a stale stop request
+            os.remove(stop_path)
+    infolog.init(os.path.join(log_dir, "train.log"),
+                 mesh.rank if mesh else 0)
     log(debug_string(cfg))
+    if mesh is not None:
+        log(mesh.describe())
     # Armed before any device work: the store upload, the init and the
     # restore can hang as a step can.
     hang_dog = HangWatchdog(cfg.train.hang_timeout_s, log_fn=log,
@@ -75,11 +105,13 @@ def train(args) -> None:
 
     use_store = cfg.train.device_resident_data
     batcher = WaveNetBatcher(args.data_dir, cfg, gc_enable=gc_enable,
-                             device_store=use_store, device=device)
+                             device_store=use_store, device=device,
+                             mesh=mesh)
     if use_store:
         log(f"device-resident clip store: "
-            f"{batcher.store_bytes / 1e6:.0f} MB on device")
-    task = WaveNetTask(cfg, gc_enable=gc_enable, device=device)
+            f"{batcher.store_bytes / 1e6:.0f} MB on device"
+            + (" (whole on each rank)" if mesh else ""))
+    task = WaveNetTask(cfg, gc_enable=gc_enable, device=device, mesh=mesh)
 
     # The JAX trainer draws one batch here, the example its init traces;
     # it is drawn here too, so that the stream that follows is JAX's.
@@ -94,8 +126,11 @@ def train(args) -> None:
                                            args.initialize_path)
     if start_step:
         log(f"Resuming from step {start_step}")
+    state = task.shard_state(state)
 
-    ckpt = CheckpointManager(log_dir, max_to_keep=cfg.train.max_checkpoints)
+    ckpt = CheckpointManager(log_dir, max_to_keep=cfg.train.max_checkpoints,
+                             mesh=mesh)
+    save = lambda s: ckpt.save(s, task.gather_state(state))
 
     # Held-out eval stream (teacher-forced loss on unseen clips, EMA).
     test_batcher = WaveNetBatcher(
@@ -103,8 +138,8 @@ def train(args) -> None:
         seed=cfg.train.random_seed + 1, batches_per_group=1)
     test_iter = iter(test_batcher)
 
-    metrics_f = open(os.path.join(log_dir, "metrics.jsonl"), "a",
-                     encoding="utf-8")
+    metrics_f = (open(os.path.join(log_dir, "metrics.jsonl"), "a",
+                      encoding="utf-8") if main else None)
     feeder = DevicePrefetcher(batcher, device=device)
     time_window, loss_window = ValueWindow(100), ValueWindow(100)
     step = start_step
@@ -139,10 +174,13 @@ def train(args) -> None:
             t_sync, steps_since_sync = now, 0
             loss_window.append(loss)
 
-            if os.path.exists(stop_path):
+            stop = main and os.path.exists(stop_path)
+            if mesh is not None:
+                stop = mesh.broadcast_flag(stop)
+            if stop:
                 log(f"STOP file found; saving checkpoint at step {step} "
                     "and exiting cleanly")
-                ckpt.save(step, state)
+                save(step)
                 break
 
             if step % sync_every == 0:
@@ -153,7 +191,7 @@ def train(args) -> None:
                 log(f"NaN loss at step {step}; aborting")
                 raise RuntimeError("loss is NaN")
 
-            if step % cfg.train.summary_interval == 0:
+            if main and step % cfg.train.summary_interval == 0:
                 metrics_f.write(json.dumps(
                     {"step": step,
                      **{k: float(v) for k, v in metrics.items()
@@ -166,27 +204,29 @@ def train(args) -> None:
                 test_loss = float(eval_out["loss"])
                 log(f"  eval: test_loss={test_loss:.5f} "
                     f"(train-test gap={test_loss - loss:+.5f})")
-                metrics_f.write(json.dumps(
-                    {"step": step, "test_loss": test_loss,
-                     "gap_test_train": test_loss - loss}) + "\n")
-                metrics_f.flush()
+                if main:
+                    metrics_f.write(json.dumps(
+                        {"step": step, "test_loss": test_loss,
+                         "gap_test_train": test_loss - loss}) + "\n")
+                    metrics_f.flush()
 
             if step % CHECKPOINT_INTERVAL == 0:
                 log(f"Saving checkpoint at step {step}")
-                ckpt.save(step, state)
+                save(step)
 
             if step >= cfg.wavenet.num_steps:
                 log(f"Reached num_steps={cfg.wavenet.num_steps}; done")
                 if ckpt.latest_step() != step:   # not saved just above
-                    ckpt.save(step, state)
+                    save(step)
                 break
     except KeyboardInterrupt:
         log("Interrupted; saving checkpoint")
         if ckpt.latest_step() != step:
-            ckpt.save(step, state)
+            save(step)
     finally:
         feeder.stop()
-        metrics_f.close()
+        if metrics_f is not None:
+            metrics_f.close()
         hang_dog.stop()
 
 
@@ -200,7 +240,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--num_steps", type=int, default=None)
     p.add_argument("--sample_size", type=int, default=None)
     p.add_argument("--use_mesh", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="data parallel over the ranks of a "
+                        "torch.distributed.run launch")
     p.add_argument("--hparams", default=None,
                    help="comma-separated group.key=value config overrides "
                         "(e.g. wavenet.input_type=mulaw-quantize)")
@@ -211,10 +252,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = p.parse_args(argv)
     if args.load_path and args.initialize_path:
         p.error("--load_path and --initialize_path are mutually exclusive")
-    if args.use_mesh:
-        raise NotImplementedError(
-            "--use_mesh: multi-device training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
     train(args)
 
 

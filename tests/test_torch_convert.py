@@ -101,7 +101,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 if top in banned or top == "tacotron_wavenet_vocoder_korean_tpu":
                     bad.append(f"{os.path.relpath(path, REPO)}: {n}")
     assert not bad, bad
-    assert sum(1 for _ in _port_sources()) >= 12
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert len(sources) >= 12
+    # the mesh and the ranks' code are covered too
+    pkg = os.path.relpath(PORT, REPO)
+    assert {os.path.join(pkg, "parallel", "mesh.py"),
+            os.path.join(pkg, "parallel", "__init__.py"),
+            "chip_smoke.py"} <= sources
 
 
 def test_entry_points_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):

@@ -1,8 +1,8 @@
 """PyTorch port: the CUDA generation kernel against its plain twin on the
 card (tests marked ``cuda``; they skip without a GPU), the Tacotron decode
 and a Tacotron training step on the card against the same on the CPU
-(also with each attention mechanism and simple speakers), and
-the twin at the
+(also with each attention mechanism and simple speakers), WaveNet's
+tensor-parallel step on two ranks sharing the card, and the twin at the
 kernel's own widths (R = D = 32) against the JAX scan sampler where JAX is
 installed.
 
@@ -308,6 +308,57 @@ def test_cuda_tacotron_train_step_matches_cpu():
         scale = (means if k.endswith("running_mean")
                  else float(v.abs().max()))
         assert float((s_card[k].cpu() - v).abs().max()) <= 1e-5 * scale, k
+
+
+@pytest.mark.cuda
+def test_cuda_wavenet_tensor_parallel_step_matches_one_process():
+    """The WaveNet mesh step at a TINY width (softmax head, weight norm,
+    L2, the clip) as (n_data, n_model) = (1, 2) and (2, 1), two gloo
+    ranks sharing ``cuda:0``, against the one-process step on the card on
+    the same global batch of 4: the metrics within 1e-5 relative, the
+    gathered gradient within 3e-6 of each leaf's largest (the CPU test's
+    bound, tests/test_torch_mesh.py), the new params within 1e-5 of each
+    leaf's largest, the skip kernels held as S / 2 columns under (1, 2)."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.train import (
+        wavenet_task as PWT)
+    from torch_mesh_workers import Ranks, wavenet_step
+    dev = _cuda()
+    w = dataclasses.replace(
+        WaveNetConfig(dilations=(1, 2, 4, 1, 2, 4), residual_channels=8,
+                      dilation_channels=8, skip_channels=16,
+                      initial_filter_width=8, upsample_factor=(2, 5)),
+        input_type="mulaw-quantize", scalar_input=False,
+        quantization_channels=16, out_channels=16, weight_normalization=True,
+        l2_regularization_strength=0.01, clip_gradients=True, batch_size=4,
+        sample_size=100)
+    cfg = Config(wavenet=w, audio=AudioConfig(hop_size=10))
+    task = PWT.WaveNetTask(cfg, device=dev)
+    state = task.init_state(0)
+    rng = np.random.RandomState(3)
+    batch = {"input_wav": rng.randint(0, 16, (4, 120, 1)).astype(np.float32),
+             "local_condition": rng.randn(4, 12, 80).astype(np.float32)}
+    b = PWT.batch_to_device(batch, dev)
+    _, one = task.grads(state.params, b)
+    new, metrics = task.train_step(state, b)
+    tree = convert.to_jax_tree(state)
+    want = convert.flatten(convert.to_jax_tree(new)["params"])
+    for shape in ((1, 2), (2, 1)):
+        out = Ranks(wavenet_step, 2, cfg, tree, batch, *shape,
+                    "cuda").results()[0]
+        assert out["backend"] == "gloo"
+        for k, v in metrics.items():
+            np.testing.assert_allclose(out["metrics"][k], float(v),
+                                       rtol=1e-5, err_msg=f"{shape} {k}")
+        for k, g in one.items():
+            g = g.cpu().numpy()
+            if np.abs(g).max() > 0:
+                assert np.abs(out["grads"][k] - g).max() <= \
+                    3e-6 * np.abs(g).max(), (shape, k)
+        got = convert.flatten(out["tree"]["params"])
+        for k, v in want.items():
+            assert np.abs(got[k] - v).max() <= 1e-5 * np.abs(v).max(), k
+        if shape == (1, 2):
+            assert out["shapes"]["layer_0_skip_kernel_v"] == (8, 8)
 
 
 @pytest.mark.cuda

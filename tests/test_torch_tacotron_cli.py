@@ -284,8 +284,7 @@ def test_cli_initialize_path_restarts_the_step(corpus, base_run, tmp_path):
 
 @pytest.mark.parametrize("argv,error", [
     (["--load_path", "a", "--initialize_path", "b"], SystemExit),
-    (["--use_mesh"], NotImplementedError),
-], ids=["exclusive-paths", "use_mesh"])
+], ids=["exclusive-paths"])
 def test_cli_refuses(corpus, tmp_path, argv, error):
     with pytest.raises(error):
         PTT.main(["--data_paths", ",".join(corpus), "--log_dir",

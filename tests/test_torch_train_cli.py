@@ -261,12 +261,6 @@ def test_load_and_initialize_paths_are_exclusive(corpus, base_run):
     assert e.value.code == 2
 
 
-def test_use_mesh_raises(corpus, base_run):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        PTV.main(["--data_dir", corpus, "--load_path", base_run,
-                  "--use_mesh", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("cli", ["train_vocoder", "preprocess"])
 def test_clis_refuse_to_run_on_cpu_silently(corpus, base_run, tmp_path,
                                             monkeypatch, cli):
