@@ -17,8 +17,7 @@ trained checkpoints: Griffin-Lim on the card against the CPU (the same
 initial phase) and timed, one ``tts`` call on four texts (one kernel
 launch; Tacotron, Griffin-Lim and vocoder times), the MCD of its
 Griffin-Lim wav to the JAX system's beside the seeded Tacotron's, and the
-``tts`` and ``synthesizer`` CLIs in subprocesses; finally time the kernel,
-and the previous step design (``csrc/wavenet_gen_block.cu``) beside it.
+``tts`` and ``synthesizer`` CLIs in subprocesses; then time the kernel.
 
     python3 chip_smoke.py
 
@@ -51,7 +50,14 @@ the prefetcher, ``wn_moon`` resumed through the ``train_vocoder`` CLI for
 run served through the ``generate`` CLI (one kernel launch), and the
 feeder's wait share with the store on and off.
 
-Then Tacotron training on that corpus, split into two speaker dirs, at
+Then the evaluation commands, in process on the trained tarballs and
+that corpus, split into two speaker dirs (moon and son): ``vocoder_eval``
+(one kernel launch per clip), ``quality_eval --heldout --wavenet`` (one
+per utterance) and ``wavenet_diagnose`` on the card and on the CPU, with
+their keys, their utterances, finite MCDs and wavs, and the diagnosis
+card against CPU.
+
+Then Tacotron training on those two speaker dirs, at
 ``both_r2``'s config: ``both_r2`` resumed at step 106,000 through the
 ``train_tacotron`` CLI for 10 steps (the learning rate held to the Noam
 schedule, the loss below seeded weights'), then side by side its run
@@ -60,9 +66,8 @@ through the ``tts`` CLI with the trained vocoder (one kernel launch);
 the batcher's device store against its host path; one f32 step of the
 trained state the CLI left (weights, batch statistics, Adam) on the card
 against the CPU with the same dropout masks; the step's time, kernels,
-busy share and peak memory at B = 32 with 1,000 target frames (200
-decoder steps) and with the corpus's 250, f32 and bf16 (kernels and busy
-share at 250).
+busy share and peak memory at B = 32 with the corpus's 250 target
+frames, f32 and bf16.
 
 Last, multi-rank training on the one card (two ranks share it over gloo;
 the phases show correctness and overheads, not scaling across cards):
@@ -78,7 +83,8 @@ and the collectives' share.
 Wavs, run dirs and unpacked checkpoints go to temporary directories that
 are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
 ``data``, a ``taco_train``, an ``attention`` and a ``mesh`` JSON line carry
-those phases' numbers; the last line is ``{"ok": true, "device": {...}}``.
+those phases' numbers, an ``eval`` line the evaluation commands' results
+and walls; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -155,10 +161,12 @@ CLASS_AGREE_BF16 = 0.95  # and an absolute floor for the softmax head
 # statistics' variance, so both tests stay conservative.
 KS_ALPHA_COEF = 1.95
 ALPHA = 0.001
-# Timing: the plain twin is timed over a span of this many steps; the
-# previous step design beside the kernel over SIDE_T steps of B = 4.
+# Timing: each variant over TIME_T steps of TIME_B streams, the main
+# path's batch (a step's time does not depend on T: the card gives the
+# same us per step at T = 8,192 and 104,400); the plain twin over a span
+# of SPAN steps.
+TIME_B, TIME_T = 4, 16384
 SPAN = 128
-SIDE_T = 8192
 # Tacotron (text -> mel): four requests, two per speaker, with digits and
 # Latin letters, decoded in one batch over the served max_iters.
 TEXTS = ["존경하는 국민 여러분, 오늘은 2026년 10월 17일입니다.",
@@ -177,14 +185,14 @@ TACO_F32_TOL = 1e-4
 # noise: mean |card - CPU| at most this many times the CPU's mean
 # |bf16 - f32| (as tests/test_torch_tacotron.py holds the port to JAX).
 TACO_BF16_RATIO = 2.0
-TACO_REPS = 2          # timed repetitions of each decode, after a warm-up
+TACO_REPS = 1          # timed repetitions of each decode, after a warm-up
 ALIGN_SUM_TOL = 1e-3     # a column of monotonic attention sums to <= 1
 # Griffin-Lim card vs CPU, the same initial phase: cuFFT and the CPU's FFT
 # round differently, 60 iterations carry it and the inverse pre-emphasis
 # (gain up to 1 / (1 - 0.97)) amplifies it; the port against JAX, both on
 # a CPU, differ by ~6e-6 on the committed mel (tests/test_torch_griffin_lim.py).
 GL_TOL = 1e-4
-GL_REPS = 5
+GL_REPS = 3
 # The end-to-end request: TEXT0 and three of TEXTS, both speakers.
 TTS_TEXTS = [TEXT0] + TEXTS[1:]
 TTS_SPEAKERS = [0, 1, 0, 1]
@@ -256,12 +264,9 @@ TACO_LOSS_TOL, TACO_PARAM_TOL, TACO_STATS_TOL = 1e-5, 5e-5, 1e-5
 # and the gradient of seeded weights (B = 2, dropout off), card vs CPU in
 # the L2 norm, as tests/test_torch_cuda.py holds it.
 TACO_GRAD_TOL = 1e-5
-# (b) the step's time at full width: B = 32, T_in = 96, T_out = 1,000 (200
-# decoder steps: JAX's filter admits up to r * max_iters - r = 995 frames,
-# bucketed to 1,000), and at the corpus's B = 32 x 250 frames; kernels and
-# device time counted at the second shape (the profiler's pass over the
-# first shape's ~140,000 kernels costs more than its steps).
-TACO_TIMING_SHAPES = ((32, 96, 1000), (32, 48, 250))
+# (b) the step's time, kernels and device time at full width on the
+# corpus's B = 32 x 250 frames.
+TACO_TIMING_SHAPES = ((32, 48, 250),)
 TACO_TRAIN_REPS = 2               # timed steps, after a warm-up
 # (c) both_r2 resumed through the train_tacotron CLI over two calls.
 TACO_START, TACO_RESUME_TO, TACO_RESUME_MORE = 106000, 106010, 106015
@@ -299,7 +304,7 @@ TACO_SEEDED_STEPS = 10            # (e)
 # speaker dirs, ATT_CLI_STEPS steps, served by the tts CLI with trained
 # wn_moon for speakers 0 and 1 (one kernel launch).
 ATT_SERVE_STEPS = 200
-ATT_REPS = 2
+ATT_REPS = 1
 ATT_MASKED_TOL = 1e-3
 ATT_CMP_B = 2
 ATT_CMP_STEPS = 25
@@ -362,7 +367,21 @@ MESH_TACO_HPARAMS = ("tacotron.fused_rnn=true,tacotron.scan_unroll=8,"
                      "tacotron.compute_dtype=float32,train.sync_every=1,"
                      "train.summary_interval=1,train.test_interval=1000,"
                      "train.best_eval_batches=0")
-MESH_REPS = 2
+MESH_REPS = 1
+# The evaluation commands on the trained tarballs and the two speaker dirs
+# above (10 moon clips, 8 son clips: the split of the JAX run behind
+# artifacts/wn_moon.eval.json).  (a) vocoder_eval: EVAL_N clips of the
+# moon dir (its 2 held-out ones first) and EVAL_N_UNSEEN of the son dir,
+# each mel padded to EVAL_FRAMES, one bf16 MoL launch per clip.  (b)
+# quality_eval --heldout --wavenet: EVAL_N_SPEAKER per speaker, each free-
+# run mel cut to EVAL_FRAMES and vocoded in one launch.  (c)
+# wavenet_diagnose over EVAL_CROPS crops, on the card and on the CPU (the
+# same crops and draws): correlation and MAE within EVAL_DIAG_TOL (the
+# forward's summation order on the card is all that differs).
+EVAL_N, EVAL_N_UNSEEN, EVAL_FRAMES = 3, 2, 80
+EVAL_N_SPEAKER = 2
+EVAL_CROPS = 4
+EVAL_DIAG_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1874,6 +1893,170 @@ def taco_speaker_dirs(tmp: str, data: str) -> list:
     return dirs
 
 
+def eval_phases(dev, smi, tmp, dirs: list) -> dict:
+    """The evaluation commands, called in process as a user would call
+    them, on the trained tarballs and the two speaker dirs: (a)
+    ``vocoder_eval`` (one kernel launch per clip, counted), (b)
+    ``quality_eval --heldout --wavenet`` (one launch per utterance,
+    counted), (c) ``wavenet_diagnose`` on the card and on the CPU (no
+    launch).  Each result's keys are the command's constant (the JAX
+    script's keys), its MCDs finite, its utterances those the command's
+    own path selection picks on the host, its wavs finite in [-1, 1].
+    Returns the ``eval`` line, with the launches under ``launches``."""
+    import glob
+    from tacotron_wavenet_vocoder_korean_tpu_torch import config as C
+    from tacotron_wavenet_vocoder_korean_tpu_torch.data import (
+        TacotronBatcher)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.audio_io import (
+        load_wav)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.scripts import (
+        quality_eval as QE, vocoder_eval as VE, wavenet_diagnose as WD)
+
+    extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+    out = {"card": smi}
+    launches = {}
+
+    def run(name: str, mod, args: list) -> dict:
+        wavenet_generate.launches = 0
+        wavenet_generate.variant_launches.clear()
+        t0 = time.perf_counter()
+        result = mod.main(args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = dict(wavenet_generate.variant_launches)
+        result["wall_s"] = time.perf_counter() - t0
+        log(f"  {name}: {result['wall_s']:.1f} s wall, launches "
+            f"{launches[name]} [{smi}]")
+        return result
+
+    def require(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(what)
+
+    def finite(x) -> bool:
+        return x is not None and bool(np.isfinite(x))
+
+    def counted(name: str, n: int) -> None:
+        want = {"mol-bfloat16": n} if dev.type == "cuda" else {}
+        require(launches[name] == want,
+                f"{name} launched {launches[name]}, want {want}")
+
+    wav_dir = os.path.join(tmp, "eval_wavs")
+    with phase(f"eval (a): vocoder_eval on wn_moon, {EVAL_N} + "
+               f"{EVAL_N_UNSEEN} unseen clips at {EVAL_FRAMES} frames, one "
+               "kernel launch each"):
+        a = run("vocoder_eval", VE, [
+            "--wavenet", WN_MOON, "--data", dirs[0], "--unseen_data",
+            dirs[1], "--n", str(EVAL_N), "--n_unseen", str(EVAL_N_UNSEEN),
+            "--max_frames", str(EVAL_FRAMES), "--no_persist", "--out_dir",
+            wav_dir, *extra])
+        n_test = max(1, C.load_config(WN_MOON).train.num_test_per_speaker)
+        paths, held = VE.select_eval_paths(
+            sorted(glob.glob(os.path.join(dirs[0], "*.npz"))), EVAL_N,
+            n_test)
+        unseen = VE.unseen_paths(dirs[1], EVAL_N_UNSEEN)
+        utts = [os.path.splitext(os.path.basename(p))[0]
+                for p in paths + unseen]
+        require(set(a) - {"wall_s"} == VE.RESULT_KEYS,
+                f"vocoder_eval keys {sorted(a)}")
+        require(a["n_utterances"] == len(utts)
+                and a["n_heldout"] == len(held) + len(unseen)
+                and [u["utt"] for u in a["per_utt"]] == utts,
+                "vocoder_eval picked other clips than its path selection")
+        require(all(finite(a[k]) for k in (
+            "wavenet_mcd_db", "gl_oracle_mcd_db", "heldout_wavenet_mcd_db",
+            "heldout_same_speaker_mcd_db", "unseen_speaker_mcd_db",
+            "unseen_speaker_gl_oracle_mcd_db")) and all(
+            finite(u["wavenet_mcd_db"]) and finite(u["gl_mcd_db"])
+            for u in a["per_utt"]), "vocoder_eval: an MCD is not finite")
+        require(sorted(os.listdir(wav_dir)) == sorted(
+            f"{u}.wn.wav" for u in utts), "vocoder_eval's --out_dir")
+        for u in utts:
+            w = load_wav(os.path.join(wav_dir, f"{u}.wn.wav"),
+                         C.Config().audio.sample_rate)
+            require(np.isfinite(w).all() and np.abs(w).max() <= 1
+                    and w.std() > 0, f"{u}.wn.wav not finite in [-1, 1]")
+        counted("vocoder_eval", len(utts))
+        log(f"  wavenet {a['wavenet_mcd_db']} dB, GL oracle "
+            f"{a['gl_oracle_mcd_db']} dB, heldout {a['heldout_wavenet_mcd_db']}"
+            f" dB (same speaker {a['heldout_same_speaker_mcd_db']}, unseen "
+            f"{a['unseen_speaker_mcd_db']} vs GL "
+            f"{a['unseen_speaker_gl_oracle_mcd_db']}) over "
+            f"{a['n_utterances']} clips ({a['n_heldout']} heldout); "
+            f"realtime factor {a['gen_realtime_factor']}")
+        out["vocoder_eval"] = a
+
+    with phase(f"eval (b): quality_eval --heldout on both_r2 with wn_moon, "
+               f"{EVAL_N_SPEAKER} per speaker, e2e at {EVAL_FRAMES} frames"):
+        b = run("quality_eval", QE, [
+            "--tacotron", BOTH_R2, "--wavenet", WN_MOON, "--data",
+            ",".join(dirs), "--n", str(EVAL_N_SPEAKER), "--heldout",
+            "--e2e_max_frames", str(EVAL_FRAMES), "--no_persist", *extra])
+        batcher = TacotronBatcher(dirs, C.load_config(BOTH_R2), "test",
+                                  batch_size=1)
+        picked = {}
+        for sid, d in enumerate(dirs):
+            ps = sorted(batcher.path_dict[d])
+            picked[QE.speaker_key(sid, d)] = len(
+                ps[:: max(1, len(ps) // EVAL_N_SPEAKER)][:EVAL_N_SPEAKER])
+        require(set(b) - {"wall_s"} == QE.RESULT_KEYS | QE.E2E_KEYS,
+                f"quality_eval keys {sorted(b)}")
+        require({k: e["n"] for k, e in b["per_speaker"].items()} == picked
+                and b["n_utterances"] == sum(picked.values()),
+                f"quality_eval scored {b['n_utterances']}, its selection "
+                f"{picked}")
+        for k, e in b["per_speaker"].items():
+            require(set(e) == QE.SPEAKER_KEYS | QE.SPEAKER_E2E_KEYS,
+                    f"quality_eval {k} keys {sorted(e)}")
+            require(all(finite(e[f]) for f in (
+                "synth_mcd_db", "oracle_mcd_db", "gap_db", "e2e_mcd_db"))
+                and all(finite(x) for f in (
+                    "per_utt_synth", "per_utt_oracle", "per_utt_e2e")
+                    for x in e[f]), f"quality_eval {k}: an MCD not finite")
+        require(all(finite(b[k]) for k in ("synth_mcd_db", "oracle_mcd_db",
+                                           "gap_db", "e2e_mcd_db")),
+                "quality_eval: an MCD is not finite")
+        counted("quality_eval", b["n_utterances"])
+        log(f"  synth (GL) {b['synth_mcd_db']} dB, oracle "
+            f"{b['oracle_mcd_db']} dB, gap {b['gap_db']} dB, e2e "
+            f"{b['e2e_mcd_db']} dB over {b['n_utterances']} held-out "
+            f"utterances (every transcript is TEXT0: synth and e2e exercise "
+            f"the path, they do not score Tacotron)")
+        out["quality_eval"] = b
+
+    with phase(f"eval (c): wavenet_diagnose on wn_moon, {EVAL_CROPS} "
+               "held-out crops, on the card and on the CPU"):
+        args = ["--wavenet", WN_MOON, "--data", dirs[0], "--n_crops",
+                str(EVAL_CROPS)]
+        c = {"card": run("wavenet_diagnose", WD, [*args, *extra]),
+             "cpu": run("wavenet_diagnose_cpu", WD, [*args, "--device",
+                                                    "cpu"])}
+        for where, r in c.items():
+            require(set(r) - {"wall_s"} == WD.RESULT_KEYS,
+                    f"wavenet_diagnose ({where}) keys {sorted(r)}")
+            require(finite(r["one_step_ahead_corr"])
+                    and finite(r["one_step_ahead_mae"]),
+                    f"wavenet_diagnose ({where}) not finite")
+            require(launches["wavenet_diagnose" if where == "card"
+                             else "wavenet_diagnose_cpu"] == {},
+                    "wavenet_diagnose launched the generation kernel")
+        diff = {k: abs(c["card"][k] - c["cpu"][k])
+                for k in ("one_step_ahead_corr", "one_step_ahead_mae")}
+        log(f"  card {c['card']['one_step_ahead_corr']} corr, "
+            f"{c['card']['one_step_ahead_mae']} MAE, healthy "
+            f"{c['card']['healthy']}; CPU {c['cpu']['one_step_ahead_corr']}"
+            f", {c['cpu']['one_step_ahead_mae']}; |card - CPU| {diff} "
+            f"(bound {EVAL_DIAG_TOL})")
+        require(all(v <= EVAL_DIAG_TOL for v in diff.values()),
+                f"wavenet_diagnose card vs CPU {diff}")
+        out["wavenet_diagnose"] = dict(c, card_vs_cpu=diff)
+    out["launches"] = {"mol-bfloat16": sum(
+        x.get("mol-bfloat16", 0) for x in launches.values())}
+    return out
+
+
 def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
     """Tacotron training on the card: (c) both_r2 resumed through the
     train_tacotron CLI, its loss against seeded weights'; then, side by
@@ -2208,7 +2391,7 @@ def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
                    "linear_targets": rng.randn(B, T_out, cfg.audio.num_freq),
                    "speaker_id": np.arange(B) % 2}
             b = batch_to_device(syn, dev, cfg.train.transfer_dtype)
-            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[1]
+            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[-1]
             for name, c in (("float32", cfg32), ("bfloat16", cfg)):
                 task = TacotronTask(c, vocab, True, dev)
                 gen = torch.Generator(dev).manual_seed(0)
@@ -3172,7 +3355,6 @@ def main() -> int:
     from tacotron_wavenet_vocoder_korean_tpu_torch.models.wavenet import (
         Upsampler)
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops import build
-    from tacotron_wavenet_vocoder_korean_tpu_torch.ops import wavenet_gen as G
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
         generate_bytes, generate_flops, generate_plain, kernel_variant,
         pack_params, precompute_lc_proj, wavenet_generate)
@@ -3195,7 +3377,7 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)}")
 
     with phase("build"):
-        build.load_libraries("wavenet_gen", "wavenet_gen_block")
+        build.load_libraries("wavenet_gen")
 
     cfg = load_config(CONFIG)
     w = cfg.wavenet
@@ -3478,9 +3660,8 @@ def main() -> int:
     tts_launches = tts.pop("launches")
 
     timing = {}
-    with phase("kernel timing at the main path's shapes"), torch.no_grad():
-        B = len(mels)
-        T = max(m.shape[0] for m in mels) * cfg.audio.hop_size
+    with phase(f"kernel timing, B={TIME_B} T={TIME_T}"), torch.no_grad():
+        B, T = TIME_B, TIME_T
         for v, packed in packs.items():
             temp = 0.7 if v.startswith("softmax") else 1.0
             proj = lc_proj_for(v, B, T)
@@ -3508,39 +3689,6 @@ def main() -> int:
                 f"({flops:.3e} FLOP, {nbytes:.3e} B); {SPAN} steps: kernel "
                 f"{span_ms:.2f} ms, plain twin {plain_ms:.1f} ms [{smi}]")
 
-    side = {}
-    with phase(f"previous step design beside the kernel, B=4 T={SIDE_T}"), \
-            torch.no_grad():
-        kernel_launcher = G._launcher
-        parent = build.load_library("wavenet_gen_block").wavenet_gen_launch
-        parent.argtypes = kernel_launcher().argtypes
-        parent.restype = kernel_launcher().restype
-        B, T = 4, SIDE_T
-        try:
-            for v, packed in packs.items():
-                temp = 0.7 if v.startswith("softmax") else 1.0
-                proj = lc_proj_for(v, B, T)
-                times = {"parent": [], "kernel": []}
-                # parent, kernel, kernel, parent: in turns on one card
-                for name in ("parent", "kernel", "kernel", "parent"):
-                    fn = parent if name == "parent" else kernel_launcher()
-                    G._launcher = lambda fn=fn: fn
-                    gen_t = torch.Generator(dev).manual_seed(8)
-                    wavenet_generate(packed, proj[:, :64].contiguous(),
-                                     generator=gen_t, temperature=temp)
-                    times[name].append(cuda_ms(lambda: wavenet_generate(
-                        packed, proj, generator=gen_t, temperature=temp))
-                        / T * 1e3)
-                side[v] = {k: min(x) for k, x in times.items()}
-                log(f"  {v}: previous {times['parent']} us per step, "
-                    f"kernel {times['kernel']} us per step")
-        finally:
-            G._launcher = kernel_launcher
-        log(f"previous step design vs kernel, us per step at B=4 T={T}: "
-            + "; ".join(f"{v} {t['parent']:.1f} -> {t['kernel']:.1f} "
-                        f"(x{t['parent'] / t['kernel']:.2f})"
-                        for v, t in side.items()) + f" [{smi}]")
-
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         corpus, preprocess = preprocess_phase(dev, smi, tmp)
@@ -3549,6 +3697,7 @@ def main() -> int:
                            train["step_time"]["float32"]["ms_median"],
                            train["seeded_eval_loss"])
         dirs = taco_speaker_dirs(tmp, corpus)
+        evals = eval_phases(dev, smi, tmp, dirs)
         taco_train = taco_train_phases(dev, smi, tmp, dirs)
         attention = attention_phases(dev, smi, tmp, dirs)
         mesh = mesh_phases(dev, smi, tmp, corpus, dirs)
@@ -3556,6 +3705,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     data["preprocess"] = preprocess
     cli_launches = data.pop("launches")
+    eval_launches = evals.pop("launches")
     taco_cli_launches = taco_train.pop("launches")
     simple_cli_launches = attention.pop("launches")
     mesh_cli_launches = mesh.pop("launches")
@@ -3580,9 +3730,9 @@ def main() -> int:
             "library_ms": None,
             "launches_text_to_wav": text_launches.get(v, 0),
             "launches_tts": tts_launches.get(v, 0),
-            "side_by_side_steps": SIDE_T,
-            "us_per_step": side[v]["kernel"],
-            "parent_us_per_step": side[v]["parent"],
+            "timing_batch": TIME_B,
+            "timing_steps": TIME_T,
+            "us_per_step": t["ms"] / TIME_T * 1e3,
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]
@@ -3596,6 +3746,8 @@ def main() -> int:
             entry["launches_simple_cli"] = simple_cli_launches[v]
         if v in mesh_cli_launches:
             entry["launches_mesh_cli"] = mesh_cli_launches[v]
+        if v in eval_launches:
+            entry["launches_eval"] = eval_launches[v]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
@@ -3610,6 +3762,7 @@ def main() -> int:
     print(json.dumps({"taco_train": taco_train}))
     print(json.dumps({"attention": attention}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"eval": evals}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

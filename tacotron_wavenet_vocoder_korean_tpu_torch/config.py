@@ -215,12 +215,14 @@ class WaveNetConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Run-level training knobs, the JAX ``TrainConfig``'s fields and
-    defaults, read by ``train_vocoder.py`` and its batchers.
+    defaults, read by ``train_vocoder.py``, ``train_tacotron.py`` and
+    their batchers.
 
-    ``best_eval_batches``, ``skip_path_filter``,
-    ``loss_explosion_threshold`` and ``transfer_dtype`` are read by the
-    Tacotron trainer and its batcher, which the port does not have yet;
-    ``checkpoint_interval`` by the Tacotron trainer alone (the WaveNet
+    ``best_eval_batches``, ``loss_explosion_threshold`` and
+    ``transfer_dtype`` are read by the Tacotron trainer,
+    ``skip_path_filter`` by ``TacotronBatcher`` (and so by
+    ``scripts/quality_eval.py --heldout``), ``checkpoint_interval`` by
+    the Tacotron trainer alone (the WaveNet
     trainer saves every 1,000 steps, as in JAX).  ``max_host_rss_gb``
     and ``restart_slowdown_ratio`` drive the JAX trainer's RSS and
     slowdown watchdogs, which answer a leak of the TPU client and are not

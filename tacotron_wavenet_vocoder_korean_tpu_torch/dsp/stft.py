@@ -110,12 +110,23 @@ def _frame(y: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
     return y.unfold(-1, frame_length, hop)
 
 
+def reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """[T] -> [T + 2 pad], reflected at both ends as ``jnp.pad(...,
+    mode="reflect")`` pads: a pad as long as the signal or longer (a few
+    frames' Griffin-Lim) reflects again, where ``F.pad`` refuses it."""
+    n = y.shape[-1]
+    if pad < n:
+        return torch.nn.functional.pad(y[None, None], (pad, pad),
+                                       mode="reflect")[0, 0]
+    period = max(2 * (n - 1), 1)
+    idx = torch.arange(-pad, n + pad, device=y.device).abs() % period
+    return y[torch.where(idx >= n, period - idx, idx)]
+
+
 def stft(y: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     """Complex STFT [num_freq, num_frames], with ``fft_size // 2`` reflect
     padding on both sides."""
-    pad = cfg.fft_size // 2
-    y = torch.nn.functional.pad(y[None, None], (pad, pad), mode="reflect")[
-        0, 0]
+    y = reflect_pad(y, cfg.fft_size // 2)
     frames = _frame(y, cfg.fft_size, cfg.hop_size)
     win = torch.from_numpy(hann_window(cfg.win_size, cfg.fft_size)).to(
         y.device, y.dtype)

@@ -103,11 +103,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
     sources = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert len(sources) >= 12
-    # the mesh and the ranks' code are covered too
+    # the mesh, the ranks' code and the evaluation commands are covered too
     pkg = os.path.relpath(PORT, REPO)
     assert {os.path.join(pkg, "parallel", "mesh.py"),
             os.path.join(pkg, "parallel", "__init__.py"),
+            os.path.join(pkg, "utils", "misc.py"),
             "chip_smoke.py"} <= sources
+    assert {os.path.join(pkg, "scripts", f"{name}.py") for name in (
+        "__init__", "vocoder_eval", "quality_eval", "wavenet_diagnose")
+            } <= sources
 
 
 def test_entry_points_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):
@@ -127,4 +131,16 @@ def test_entry_points_refuse_to_run_on_cpu_silently(monkeypatch, tmp_path):
     np.save(mel, np.zeros((3, 80), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA"):
         generate.main(["--init_seed", "0", "--mel", str(mel)])
+    # the evaluation commands raise before reading a run or a corpus
+    from tacotron_wavenet_vocoder_korean_tpu_torch.scripts import (
+        quality_eval, vocoder_eval, wavenet_diagnose)
+    run, data = str(tmp_path / "run"), str(tmp_path / "data")
+    for cmd, args in (
+            (vocoder_eval, ["--wavenet", run, "--data", data,
+                            "--no_persist"]),
+            (quality_eval, ["--tacotron", run, "--data", data,
+                            "--no_persist"]),
+            (wavenet_diagnose, ["--wavenet", run, "--data", data])):
+        with pytest.raises(RuntimeError, match="no CUDA"):
+            cmd.main(args)
     assert resolve_device("cpu") == torch.device("cpu")

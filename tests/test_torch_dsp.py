@@ -67,6 +67,17 @@ def test_preemphasis_and_stft_match_jax():
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("n", [1, 2, 300, 900, 1024, 1025, 3000])
+def test_stft_reflects_short_signals_as_jax(n):
+    """Signals up to the pad's length (a Griffin-Lim of a few frames)
+    reflect again, as ``jnp.pad`` does: within 1e-5 of the largest bin."""
+    x = np.random.default_rng(n).uniform(-0.5, 0.5, n).astype(np.float32)
+    got = PS.stft(torch.from_numpy(x), PAudio()).numpy()
+    want = np.asarray(JD.stft(jnp.asarray(x), JAudio()))
+    assert got.shape == want.shape == (1025, 1 + n // 300)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("path", WAVS, ids=lambda p: os.path.basename(p))
 def test_mel_spectrogram_matches_jax_on_committed_wavs(path):
     """Normalized mel of a committed WaveNet wav: <= 1e-5 (observed
