@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build the generation kernel,
 hold each of its four variants (mixture-of-logistics or 256-way softmax
-head, f32 or bf16 weights) against its plain twin at full width, drive the
+head, f32 or bf16 weights) against its plain twin at full width and at
+other widths (the ``widths`` phases: twice wn_moon's residual width,
+timed, and served by ``WaveNetGenerator``; R != D; TINY's widths and
+widths off the 8-channel grid; 40 front taps and 40 components; 300
+classes; a config over the shared-memory ceiling refused), drive the
 vocoder serving path (mel -> wav) through ``WaveNetGenerator``, check that
 an out-of-range speaker id leaves the card working, drive text -> mel
 (``Synthesizer``, Tacotron at the ``both_r2`` width) and text -> wav (its
@@ -84,7 +88,9 @@ Wavs, run dirs and unpacked checkpoints go to temporary directories that
 are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
 ``data``, a ``taco_train``, an ``attention`` and a ``mesh`` JSON line carry
 those phases' numbers, an ``eval`` line the evaluation commands' results
-and walls; the last line is ``{"ok": true, "device": {...}}``.
+and walls, and the ``kernels`` line, per variant, the widths held with
+their errors and the 2x-width times; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -163,10 +169,20 @@ KS_ALPHA_COEF = 1.95
 ALPHA = 0.001
 # Timing: each variant over TIME_T steps of TIME_B streams, the main
 # path's batch (a step's time does not depend on T: the card gives the
-# same us per step at T = 8,192 and 104,400); the plain twin over a span
-# of SPAN steps.
+# same us per step at T = 8,192 and 104,400); the plain twin and the kernel
+# over the first teacher-forced span of the comparison phases.  Trained
+# wn_moon is held over SPAN steps.
 TIME_B, TIME_T = 4, 16384
 SPAN = 128
+# Other widths (``widths`` phases): f32 kernel vs twin over WIDTH_T
+# teacher-forced and WIDTH_FREE free-running steps of TIME_B streams, bf16
+# over WIDTH_BF16_T teacher-forced steps of WIDTH_BF16_B streams (enough
+# component flips on both sides for compare_bf16's ratio of flip shares;
+# the twin's time goes with the steps, not the streams); the 2x-width variants
+# timed over WIDTH_TIME_T steps; the generator on WIDTH_FRAMES frames of
+# the first committed mel.
+WIDTH_T, WIDTH_FREE, WIDTH_BF16_B, WIDTH_BF16_T = 128, 64, 8, 256
+WIDTH_TIME_T, WIDTH_FRAMES = 4096, 20
 # Tacotron (text -> mel): four requests, two per speaker, with digits and
 # Latin letters, decoded in one batch over the served max_iters.
 TEXTS = ["존경하는 국민 여러분, 오늘은 2026년 10월 17일입니다.",
@@ -220,7 +236,7 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-2
 TRAIN_F64_RATIO = 3.0
 TRAIN_BF16_RATIO = 2.0            # card bf16 vs CPU bf16, against bf16 - f32
 TRAIN_RESUME_STEPS = 5
-TRAIN_REPS = 10                   # timed steps, after a warm-up
+TRAIN_REPS = 5                    # timed steps, after a warm-up
 TRAIN_SERVE_FRAMES = 40
 
 # The data pipeline and the training CLI: the committed wn_moon_260k clips
@@ -246,7 +262,7 @@ DATA_RESUME_TO, DATA_RESUME_MORE = 260270, 260280
 DATA_HPARAMS = ("train.sync_every=10,train.summary_interval=20,"
                 "train.test_interval=20")
 DATA_GC_STEPS = 10
-DATA_FEED_STEPS = 20
+DATA_FEED_STEPS = 10
 DATA_OVERRIDES: dict = {}
 DATA_SERVE_MEL = E2E_MEL
 # Tacotron training on the corpus above, split into two speaker dirs (10
@@ -411,26 +427,37 @@ def compare(name, got, want, tol=STEP_TOL, max_share=MAX_TIE_SHARE):
     return float(err.max())
 
 
-def compare_classes(name, got, want, min_agree):
+def compare_classes(name, got, want, min_agree, n_classes=256):
     agree = float((got == want).float().mean())
     err = float((got - want).abs().max())
     log(f"  {name}: class agreement {agree:.5f} (bound >= {min_agree}), "
         f"max_abs_err {err:g}, {len(torch.unique(got))} distinct classes")
     if not (torch.equal(got, got.round()) and float(got.min()) >= 0
-            and float(got.max()) < 256):
+            and float(got.max()) < n_classes):
         raise AssertionError(f"{name}: kernel output is not class ids")
     if agree < min_agree:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return err, agree
 
 
-def compare_bf16(name, k16, t16, k32, classes, early_tol=BF16_EARLY_TOL):
+def early_max(err, skip_flips=False) -> float:
+    """The largest MoL error over the first BF16_EARLY steps, of the steps
+    that are not component flips (> BF16_JUMP) when ``skip_flips``."""
+    err = err[:, :BF16_EARLY]
+    if skip_flips:
+        err = err[err <= BF16_JUMP]
+    return float(err.max()) if err.numel() else 0.0
+
+
+def compare_bf16(name, k16, t16, k32, classes, early_tol=BF16_EARLY_TOL,
+                 early_skip_flips=False):
     """bf16 kernel ``k16`` against its bf16 twin ``t16``, measured against
     the twin's own distance from the f32 kernel ``k32`` (see BF16_RATIO).
     MoL: mean abs error and share of component flips, and the largest
-    error over the first BF16_EARLY steps at most ``early_tol``; softmax:
-    share of differing classes.  Returns (max abs error, class agreement
-    or None)."""
+    error over the first BF16_EARLY steps (with ``early_skip_flips``, of
+    the steps that are not flips: those the flip share holds) at most
+    ``early_tol``; softmax: share of differing classes.  Returns (max abs
+    error, class agreement or None)."""
     if classes:
         d_kt = float((k16 != t16).float().mean())
         d_tf = float((t16 != k32).float().mean())
@@ -441,13 +468,14 @@ def compare_bf16(name, k16, t16, k32, classes, early_tol=BF16_EARLY_TOL):
         ok = d_kt <= BF16_RATIO * d_tf and agree >= CLASS_AGREE_BF16
     else:
         e_kt, e_tf = (k16 - t16).abs(), (t16 - k32).abs()
-        early = float(e_kt[:, :BF16_EARLY].max())
+        early = early_max(e_kt, early_skip_flips)
         mean_kt, mean_tf = float(e_kt.mean()), float(e_tf.mean())
         jump_kt = float((e_kt > BF16_JUMP).float().mean())
         jump_tf = float((e_tf > BF16_JUMP).float().mean())
         agree = None
-        log(f"  {name}: first {BF16_EARLY} steps max_abs_err {early:.3e} "
-            f"(bound {early_tol:.3e}); mean abs err kernel/twin "
+        log(f"  {name}: first {BF16_EARLY} steps max_abs_err {early:.3e}"
+            f"{' but flips' if early_skip_flips else ''} (bound "
+            f"{early_tol:.3e}); mean abs err kernel/twin "
             f"{mean_kt:.3e} (bound <= {BF16_RATIO:g} x {mean_tf:.3e}, twin "
             f"bf16/f32); flips (>{BF16_JUMP:g}) {jump_kt:.5f} (bound <= "
             f"{BF16_RATIO:g} x {jump_tf:.5f}); max_abs_err "
@@ -687,10 +715,11 @@ def tacotron_phases(dev, wn_cfg, gen, smi) -> dict:
                 enc = model.encode(x, ln, sp)
                 masks = model.draw_prenet_masks(iters, B, g)
                 loop = lambda: model.decoder(enc, iters, masks)
-                loop()
                 loops = [cuda_ms(loop) for _ in range(TACO_REPS)]
                 req_ms, loop_ms = np.mean(req), np.mean(loops)
-                count = decoder_launches(model, enc, masks, 20)
+                # Kernels per step do not depend on B: counted at B = 1.
+                count = (decoder_launches(model, enc, masks, 20) if B == 1
+                         else dict(count, device_us_per_step=None))
                 timing[f"{name}_B{B}"] = dict(
                     ms_per_request=req_ms, decoder_ms=loop_ms,
                     ms_per_step=loop_ms / iters,
@@ -2391,8 +2420,9 @@ def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
                    "linear_targets": rng.randn(B, T_out, cfg.audio.num_freq),
                    "speaker_id": np.arange(B) % 2}
             b = batch_to_device(syn, dev, cfg.train.transfer_dtype)
-            profiled = (B, T_in, T_out) == TACO_TIMING_SHAPES[-1]
+            last = (B, T_in, T_out) == TACO_TIMING_SHAPES[-1]
             for name, c in (("float32", cfg32), ("bfloat16", cfg)):
+                profiled = last and name == "bfloat16"   # the served type
                 task = TacotronTask(c, vocab, True, dev)
                 gen = torch.Generator(dev).manual_seed(0)
                 state, m = task.train_step(trained, b, generator=gen)
@@ -2497,18 +2527,13 @@ def attention_phases(dev, smi, tmp, dirs: list) -> dict:
             loop = lambda: model.decoder(enc, iters, masks)
             loop()
             reps = sorted(cuda_ms(loop) / iters for _ in range(ATT_REPS))
-            count = decoder_launches(model, enc, masks, 20)
             row.update(mechanism=mech, masked_max=masked,
                        ms_per_step_min=reps[0],
                        ms_per_step_median=reps[len(reps) // 2],
-                       ms_per_step_max=reps[-1], **count)
+                       ms_per_step_max=reps[-1])
             log(f"  decoder loop {reps[0]:.3f} / {reps[len(reps) // 2]:.3f} "
                 f"/ {reps[-1]:.3f} ms per step (min / median / max of "
-                f"{ATT_REPS}); CUDA kernels per step "
-                f"{count['kernels_per_step'] or 'not measured'} "
-                f"({count['launch_calls_per_step']} launch calls), device "
-                f"{count['device_us_per_step'] or 'not measured'} us per "
-                f"step [{smi}]")
+                f"{ATT_REPS}) [{smi}]")
             del synth, model, enc, masks
 
         with phase(f"attention {name} (b): deterministic decode, card vs "
@@ -3336,6 +3361,238 @@ def mesh_phases(dev, smi, tmp, data: str, dirs: list) -> dict:
     return out
 
 
+def width_configs(w) -> dict:
+    """The widths the ``widths`` phases hold, from wn_moon's config ``w``."""
+    rep = dataclasses.replace
+    softmax = dict(input_type="mulaw-quantize", scalar_input=False)
+    twice = rep(w, residual_channels=64, dilation_channels=64)
+    tiny = rep(w, dilations=(1, 2, 4, 1, 2, 4), residual_channels=8,
+               dilation_channels=8, skip_channels=16, out_channels=12,
+               initial_filter_width=8)
+    return {
+        "twice": twice,
+        "twice_softmax": rep(twice, out_channels=w.quantization_channels,
+                             **softmax),
+        "r64_d32": rep(w, dilations=w.dilations[:10], residual_channels=64),
+        "r32_d64": rep(w, dilations=w.dilations[:10], dilation_channels=64),
+        "tiny": tiny,
+        "r12_d12_s20": rep(tiny, residual_channels=12, dilation_channels=12,
+                           skip_channels=20),
+        "w40_mol40": rep(tiny, residual_channels=16, dilation_channels=16,
+                         skip_channels=24, initial_filter_width=40,
+                         out_channels=120),
+        "softmax_q300": rep(tiny, quantization_channels=300,
+                            out_channels=300, **softmax),
+    }
+
+
+def widths_phases(dev, smi, cfg, mels) -> dict:
+    """The generation kernel at other widths than wn_moon's, on seeded
+    weights and the committed mels through each width's own upsampler and
+    lc projection, primed as the full-width phases prime: 2x wn_moon's
+    residual width (R = D = 64, its 50 layers, S = 512, MoL of 10 and the
+    256-way softmax head; f32 takes one weight slot), R != D at 10 layers,
+    TINY's widths, widths off the 8-channel grid (padded by the wrapper),
+    40 front taps with 40 components, a 300-way softmax head.  Each: the
+    library's shared-memory size equal to ``kernel_smem``'s; f32 kernel vs
+    twin teacher-forced (WIDTH_T steps) and free-running (WIDTH_FREE);
+    bf16 kernel vs twin teacher-forced over WIDTH_BF16_T steps within
+    compare_bf16's bounds, its early steps held, as the trained phase holds
+    them, to BF16_RATIO times the twin's own distance from f32 there (but
+    never tighter than BF16_EARLY_TOL), component flips left to the flip
+    share (a wider network meets near-tied components early: at 2x the
+    twin and the f32 kernel part by flips in the first steps too); at 2x
+    the four variants timed at B
+    = TIME_B over WIDTH_TIME_T steps, and one ``WaveNetGenerator`` request
+    per head.  A config over the shared-memory ceiling is refused at
+    construction with nothing allocated.  Returns, per variant, the widths
+    held and the 2x numbers."""
+    from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
+        seeded_params)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.mulaw import (
+        mulaw_quantize)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.models.wavenet import (
+        Upsampler)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.build import (
+        load_library)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
+        WEIGHT_DTYPES, generate_bytes, generate_flops, generate_plain,
+        kernel_smem, kernel_variant, pack_params, precompute_lc_proj,
+        wavenet_generate)
+    from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
+        WaveNetGenerator)
+    w, hop, sr = cfg.wavenet, cfg.audio.hop_size, cfg.audio.sample_rate
+    lib = load_library("wavenet_gen")
+    out = {}                 # variant -> list of widths held
+
+    def held(v, entry):
+        out.setdefault(v, []).append(entry)
+
+    def inputs(c, params, packed, B, T, seed):
+        """lc projection [B, T, L*2D] of the mels, and a primed stream: a
+        sine with noise (mu-law classes for the softmax head)."""
+        f = -(-T // hop)
+        mel = np.stack([np.resize(mels[b % len(mels)], (f, mels[0].shape[1]))
+                        for b in range(B)]).astype(np.float32)
+        lc = Upsampler(c).load_params(params).to(dev)(
+            torch.from_numpy(mel).to(dev))[:, :T]
+        rng = np.random.default_rng(seed)
+        x = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 300, (1, B))
+                          * np.arange(T)[:, None] / sr)
+             + 0.05 * rng.standard_normal((T, B)))
+        primed = torch.from_numpy(x.astype(np.float32)).to(dev)
+        if not c.scalar_input:
+            primed = mulaw_quantize(primed, c.quantization_channels).float()
+        return precompute_lc_proj(packed, lc), primed.contiguous()
+
+    for name, c in width_configs(w).items():
+        W = c.initial_filter_width if c.scalar_input else c.filter_width
+        C = c.out_channels if c.scalar_input else c.quantization_channels
+        dims = (len(c.dilations), c.residual_channels, c.dilation_channels,
+                c.skip_channels, C, W)
+        shape = dict(zip(("L", "R", "D", "S", "C", "W"), dims))
+        for wdt in WEIGHT_DTYPES:
+            bf = int(wdt == torch.bfloat16)
+            c_side = (lib.wavenet_gen_smem_bytes(*dims, bf),
+                      lib.wavenet_gen_slots(*dims, bf))
+            if c_side != kernel_smem(*dims, wdt):
+                raise AssertionError(f"{name}: the library's shared memory "
+                                     f"{c_side} != kernel_smem's "
+                                     f"{kernel_smem(*dims, wdt)}")
+        slots = {str(wdt)[6:]: kernel_smem(*dims, wdt)[1]
+                 for wdt in WEIGHT_DTYPES}
+        with phase(f"widths {name}: {shape}, weight slots {slots}"), \
+                torch.no_grad():
+            params = seeded_params(c, seed=0, device=dev)
+            f32, b16 = (pack_params(c, params, wdt) for wdt in WEIGHT_DTYPES)
+            v32, v16 = kernel_variant(f32), kernel_variant(b16)
+            B = TIME_B
+            proj, primed = inputs(c, params, f32, WIDTH_BF16_B, WIDTH_BF16_T,
+                                  31)
+            entry = dict(name=name, **shape)
+            # f32: teacher-forced, then free-running.
+            span = proj[:B, :WIDTH_T].contiguous()
+            prime_span = primed[:WIDTH_T, :B].contiguous()
+            kw = dict(deterministic=True, primed=prime_span,
+                      prime_len=WIDTH_T)
+            k32 = wavenet_generate(f32, span, **kw)
+            res = {}
+            plain_ms = cuda_ms(lambda: res.update(
+                p=generate_plain(f32, span, **kw)))
+            span_ms = cuda_ms(lambda: wavenet_generate(f32, span, **kw))
+            free = proj[:B, :WIDTH_FREE].contiguous()
+            kf = wavenet_generate(f32, free, deterministic=True)
+            pf = generate_plain(f32, free, deterministic=True)
+            e32 = dict(entry, slots=slots["float32"],
+                       smem_bytes=kernel_smem(*dims, torch.float32)[0])
+            if c.scalar_input:
+                err = compare(f"f32 teacher-forced {WIDTH_T}", k32, res["p"])
+                err_free = compare(f"f32 free-running {WIDTH_FREE}", kf, pf,
+                                   tol=FREE_RUN_TOL, max_share=0.0)
+                if float(kf.std()) == 0.0:
+                    raise AssertionError(f"{name}: constant free run")
+                held(v32, dict(e32, max_abs_err=err,
+                               max_abs_err_free=err_free))
+            else:
+                _, agree = compare_classes(f"f32 teacher-forced {WIDTH_T}",
+                                           k32, res["p"], CLASS_AGREE_F32, C)
+                _, agree_free = compare_classes(
+                    f"f32 free-running {WIDTH_FREE}", kf, pf,
+                    CLASS_AGREE_F32, C)
+                held(v32, dict(e32, class_agreement=agree,
+                               class_agreement_free=agree_free))
+            # bf16: teacher-forced, against the twin and the f32 kernel.
+            kw = dict(deterministic=True, primed=primed,
+                      prime_len=WIDTH_BF16_T)
+            k32 = wavenet_generate(f32, proj, **kw)
+            k16 = wavenet_generate(b16, proj, **kw)
+            t16 = generate_plain(b16, proj, **kw)
+            early_noise = early_max((t16 - k32).abs(), skip_flips=True)
+            early_tol = max(BF16_EARLY_TOL, BF16_RATIO * early_noise)
+            err16, agree16 = compare_bf16(
+                f"bf16 teacher-forced {WIDTH_BF16_T}", k16, t16, k32,
+                classes=not c.scalar_input, early_tol=early_tol,
+                early_skip_flips=True)
+            e16 = dict(entry, slots=slots["bfloat16"],
+                       smem_bytes=kernel_smem(*dims, torch.bfloat16)[0])
+            held(v16, dict(e16, **({"max_abs_err": err16,
+                                    "early_tol": early_tol}
+                                   if agree16 is None
+                                   else {"class_agreement": agree16})))
+            del proj, primed, span, free, k32, k16, t16, res
+            if not name.startswith("twice"):
+                continue
+            temp = 1.0 if c.scalar_input else 0.7
+            for v, pk in ((v32, f32), (v16, b16)):
+                p_t, _ = inputs(c, params, pk, B, WIDTH_TIME_T, 32)
+                gen_t = torch.Generator(dev).manual_seed(33)
+                wavenet_generate(pk, p_t[:, :64].contiguous(),
+                                 generator=gen_t, temperature=temp)
+                ms = cuda_ms(lambda: wavenet_generate(
+                    pk, p_t, generator=gen_t, temperature=temp))
+                flops = generate_flops(pk, B, WIDTH_TIME_T)
+                nbytes = generate_bytes(pk, B, WIDTH_TIME_T)
+                t_ops = flops / PEAK_FLOPS_S[pk["w_tap"].dtype] * 1e3
+                t_bytes = nbytes / HBM_BYTES_S * 1e3
+                out[v][-1].update(
+                    us_per_step=ms / WIDTH_TIME_T * 1e3, ms=ms,
+                    timing_batch=B, timing_steps=WIDTH_TIME_T,
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+                span = ""
+                if v == v32:
+                    out[v][-1].update(plain_ms=plain_ms,
+                                      ms_plain_steps=span_ms,
+                                      plain_steps=WIDTH_T)
+                    span = (f"; {WIDTH_T} steps: kernel {span_ms:.2f} ms, "
+                            f"plain twin {plain_ms:.1f} ms")
+                log(f"  {v} B={B} T={WIDTH_TIME_T}: {ms:.1f} ms "
+                    f"({ms / WIDTH_TIME_T * 1e3:.1f} us per step); bound "
+                    f"{max(t_ops, t_bytes):.3f} ms ({flops:.3e} FLOP, "
+                    f"{nbytes:.3e} B){span} [{smi}]")
+                del p_t
+            gen = WaveNetGenerator(dataclasses.replace(cfg, wavenet=c),
+                                   params, device="cuda")
+            before = wavenet_generate.launches
+            mel = mels[0][:WIDTH_FRAMES]
+            t0 = time.perf_counter()
+            wav = gen.generate(mel, seed=5, temperature=temp)
+            dt = time.perf_counter() - t0
+            launches = wavenet_generate.launches - before
+            if launches != 1:
+                raise AssertionError(f"{name}: the generator launched "
+                                     f"{launches} times")
+            if wav.shape != (WIDTH_FRAMES * hop,) or not (
+                    np.isfinite(wav).all() and np.abs(wav).max() <= 1):
+                raise AssertionError(f"{name}: generator wav not finite in "
+                                     "[-1, 1]")
+            out[kernel_variant(gen.packed)][-1].update(
+                generator_launches=launches, generator_s=dt)
+            log(f"  WaveNetGenerator ({gen.weight_dtype}): {mel.shape[0]} "
+                f"frames -> {wav.shape[0]} samples in {dt:.3f}s, one launch,"
+                f" std {wav.std():.4f}")
+            del gen, params, f32, b16
+
+    with phase("widths: over the shared-memory ceiling, refused at "
+               "construction"):
+        wide = dataclasses.replace(w, residual_channels=128,
+                                   dilation_channels=128)
+        params = seeded_params(wide, seed=0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        for wdt in WEIGHT_DTYPES:
+            try:
+                WaveNetGenerator(dataclasses.replace(cfg, wavenet=wide),
+                                 params, device="cuda", weight_dtype=wdt)
+            except ValueError as e:
+                log(f"  R = D = 128, L = 50, {wdt}: ValueError ({e})")
+            else:
+                raise AssertionError("R = D = 128 was not refused")
+        if torch.cuda.memory_allocated(dev) != before:
+            raise AssertionError("the refused generator allocated memory")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3422,16 +3679,24 @@ def main() -> int:
 
     errors = {v: [] for v in packs}
     agreement = {}
+    spans = {}   # variant -> (kernel ms, twin ms, steps) of one span
+
+    def timed_pair(v, kernel, plain, steps):
+        """kernel() and plain(), each timed: the variant's span times."""
+        res = {}
+        spans[v] = (cuda_ms(lambda: res.update(k=kernel())),
+                    cuda_ms(lambda: res.update(p=plain())), steps)
+        return res["k"], res["p"]
     with phase("MoL head, f32: kernel vs plain twin, full width, B=4"), \
             torch.no_grad():
         packed = packs["mol-float32"]
         B, T = 4, 512
         proj = lc_proj_for("mol-float32", B, T)
         primed = prime_signal(B, T, 1)
-        k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
-                             prime_len=T)
-        p = generate_plain(packed, proj, deterministic=True, primed=primed,
-                           prime_len=T)
+        kw = dict(deterministic=True, primed=primed, prime_len=T)
+        k, p = timed_pair("mol-float32",
+                          lambda: wavenet_generate(packed, proj, **kw),
+                          lambda: generate_plain(packed, proj, **kw), T)
         torch.cuda.synchronize()
         errors["mol-float32"].append(compare(
             f"(a) deterministic, teacher-forced {T}", k, p))
@@ -3477,10 +3742,10 @@ def main() -> int:
         B, T = 4, 512
         proj = lc_proj_for("softmax-float32", B, T)
         primed = prime_classes(B, T, 11)
-        k = wavenet_generate(packed, proj, deterministic=True, primed=primed,
-                             prime_len=T)
-        p = generate_plain(packed, proj, deterministic=True, primed=primed,
-                           prime_len=T)
+        kw = dict(deterministic=True, primed=primed, prime_len=T)
+        k, p = timed_pair("softmax-float32",
+                          lambda: wavenet_generate(packed, proj, **kw),
+                          lambda: generate_plain(packed, proj, **kw), T)
         err, agree_a = compare_classes(
             f"(a) deterministic, teacher-forced {T}", k, p, CLASS_AGREE_F32)
         errors["softmax-float32"].append(err)
@@ -3533,8 +3798,9 @@ def main() -> int:
             run = lambda fn, dt: fn(packs[f"{head}-{dt}"], proj,
                                     deterministic=True, primed=primed,
                                     prime_len=T)
-            k16 = run(wavenet_generate, "bfloat16")
-            t16 = run(generate_plain, "bfloat16")
+            k16, t16 = timed_pair(f"{head}-bfloat16",
+                                  lambda: run(wavenet_generate, "bfloat16"),
+                                  lambda: run(generate_plain, "bfloat16"), T)
             k32 = run(wavenet_generate, "float32")
             err, agree = compare_bf16(
                 f"{head}, deterministic, teacher-forced {T}", k16, t16, k32,
@@ -3555,6 +3821,8 @@ def main() -> int:
                 f"{corr:.5f}, mean relative drift {rel:.5f} (printed, not "
                 "bounded)")
         del proj, signals, primed, k16, t16, k32
+
+    widths = widths_phases(dev, smi, cfg, mels)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3668,26 +3936,22 @@ def main() -> int:
             gen_t = torch.Generator(dev).manual_seed(6)
             ms = cuda_ms(lambda: wavenet_generate(
                 packed, proj, generator=gen_t, temperature=temp))
-            # The twin launches hundreds of small ops per sample: it is
-            # timed on a SPAN-step span of the same streams, and the kernel
-            # on that span too, so the two times compare directly.
-            proj_s = proj[:, :SPAN].contiguous()
             del proj
-            plain_ms = cuda_ms(lambda: generate_plain(
-                packed, proj_s, generator=gen_t, temperature=temp))
-            span_ms = cuda_ms(lambda: wavenet_generate(
-                packed, proj_s, generator=gen_t, temperature=temp))
+            # The twin launches hundreds of small ops per sample: it and
+            # the kernel were timed on the comparison phases' span.
+            span_ms, plain_ms, steps = spans[v]
             flops = generate_flops(packed, B, T)
             nbytes = generate_bytes(packed, B, T)
             t_ops = flops / PEAK_FLOPS_S[packed["w_tap"].dtype] * 1e3
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             timing[v] = dict(ms=ms, plain_ms=plain_ms, span_ms=span_ms,
-                             t_ops=t_ops, t_bytes=t_bytes)
+                             steps=steps, t_ops=t_ops, t_bytes=t_bytes)
             log(f"  wavenet_generate[{v}] B={B} T={T}: {ms:.1f} ms "
                 f"({ms / T * 1e3:.1f} us per step, {B * T / ms * 1e3:.0f} "
                 f"samples/s aggregate); bound {max(t_ops, t_bytes):.2f} ms "
-                f"({flops:.3e} FLOP, {nbytes:.3e} B); {SPAN} steps: kernel "
-                f"{span_ms:.2f} ms, plain twin {plain_ms:.1f} ms [{smi}]")
+                f"({flops:.3e} FLOP, {nbytes:.3e} B); {steps} steps "
+                f"teacher-forced: kernel {span_ms:.2f} ms, plain twin "
+                f"{plain_ms:.1f} ms [{smi}]")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3723,7 +3987,7 @@ def main() -> int:
             "max_abs_err": max(errors[v]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
-            "plain_steps": SPAN,
+            "plain_steps": t["steps"],
             "ms_plain_steps": t["span_ms"],
             "bound_ms": max(t["t_ops"], t["t_bytes"]),
             "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
@@ -3736,6 +4000,7 @@ def main() -> int:
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]
+        entry["widths"] = widths[v]
         if v in train["serve"]["launches"]:
             entry["launches_train_serve"] = train["serve"]["launches"][v]
         if v in cli_launches:

@@ -27,6 +27,7 @@ anything.  Variants:
   skip_roundsN   the skip warps wait for N layers (or the last) before
                  each round (N = 4, 12, 50: 50 runs the skip after the chain)
   skip_all_warps the skip product also on the chain warp's scheduler
+  any_width      the instance for run-time widths, at wn_moon's
   parent         the previous, block-synchronous step design
                  (``csrc/wavenet_gen_block.cu``), unchanged
 """
@@ -51,12 +52,12 @@ REPO = os.path.dirname(build.PKG_DIR)
 SOURCE = os.path.join(build.CSRC_DIR, "wavenet_gen.cu")
 PARENT = os.path.join(build.CSRC_DIR, "wavenet_gen_block.cu")
 
-_SKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, S, part, "
-         "skip_i, lane);\n")
+_SKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, D, S, part, "
+         "skip_i,\n                       lane);\n")
 _SKIP_SUM = "      for (int j = 0; j < n_groups; ++j) v += part[j * S + s];\n"
 _POST1 = "    dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
 _PROLOGUE = "  if (tid == PRODUCER)\n    for (; g_load < NSLOT"
-_CHAIN = "    if (warp == 0) {\n      run_chain<WT>("
+_CHAIN = "    if (warp == 0) {\n      if constexpr (FIXED)\n"
 _PRODUCER = "    } else if (tid == PRODUCER) {\n"
 _WAIT = "    mbar_wait(&full[s], (unsigned)((g / NSLOT) & 1));\n"
 _TAP = ("      Chunk<WT>::two(wf + k, wg + k, k < R ? xo + k : hr + (k - R), "
@@ -66,6 +67,8 @@ _RES = "      Chunk<WT>::one(wr + k, gat + l * D + k, ar);\n"
 _SKIP_U = "  constexpr int U = sizeof(WT) == 2 ? 8 : 16;\n"
 _SKIP_WAIT = "    mbar_wait(&ready[l0], parity);\n    int l1 = l0 + 1;\n"
 _NSK = "constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);\n"
+_FIXED = ("  if (p.R == FW && p.D == FW && p.Dlc == FW && p.nslot == "
+          "nslot<WT>())\n")
 _SKIP_I = ("  const int skip_i = (warp > 1 && warp % 4 != 0)\n"
            "                         ? (warp - warp / 4 - 2) * 32 + lane : -1;\n")
 
@@ -84,7 +87,7 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
                  "rnd<WT>(0.01f * lcs[l * 2 * D + lane]);\n"
                  "        mbar_arrive(&ready[l]);\n"
                  "      }\n"
-                 "    } else if (false) {\n      run_chain<WT>("),
+                 "    } else if (false) {\n      if constexpr (FIXED)\n"),
         (_PRODUCER, "    } else if (false) {\n")]),
     "chain_no_wait": (SOURCE, [(_WAIT, "")]),
     "chain_no_tap": (SOURCE, [(_TAP, "")]),
@@ -98,6 +101,7 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         (_NSK, "constexpr int NSK = 32 * (NT / 32 - 2);\n"),
         (_SKIP_I, "  const int skip_i = warp > 1 ? (warp - 2) * 32 + lane "
                   ": -1;\n")]),
+    "any_width": (SOURCE, [(_FIXED, "  if (false)\n")]),
     "parent": (PARENT, []),
 }
 
@@ -133,11 +137,21 @@ def build_all(out_dir: str) -> Dict[str, str]:
     return libs
 
 
-def _bind(path: str):
+# wavenet_gen_launch's R and D, which the previous design does not take
+# (it is laid out for R = D = 32).
+_RD_ARGS = slice(21, 23)
+
+
+def _bind(path: str, takes_widths: bool = True):
     fn = ctypes.CDLL(path).wavenet_gen_launch
-    fn.argtypes = G._launcher().argtypes
+    args = list(G._launcher().argtypes)
     fn.restype = ctypes.c_int
-    return fn
+    if takes_widths:
+        fn.argtypes = args
+        return fn
+    del args[_RD_ARGS]
+    fn.argtypes = args
+    return lambda *a: fn(*a[:_RD_ARGS.start], *a[_RD_ARGS.stop:])
 
 
 def _ms(fn) -> float:
@@ -179,7 +193,8 @@ def main(argv=None) -> None:
         projs = {dt: G.precompute_lc_proj(pk, lc) for dt, pk in packs.items()}
     print(f"card: {smi}; B={B} T={T}, us per step", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = {name: _bind(lib) for name, lib in build_all(tmp).items()}
+        fns = {name: _bind(lib, VARIANTS[name][0] == SOURCE)
+               for name, lib in build_all(tmp).items()}
         kernel_launcher = G._launcher
         try:
             for rep in range(args.reps):

@@ -2,13 +2,13 @@
 //
 // Replaces the TPU kernel ops/wavenet_pallas.py:pallas_generate (body
 // make_generate_kernel) of the JAX package, with both of its sampling heads
-// and both of its weight types.  It computes the same function (front causal
-// conv, L gated dilated layers reading their history at ring slot t mod d,
-// the skip product, relu -> post1 -> relu -> post2, then the head;
-// teacher-forced priming for t < prime_len, window shift), but not K1's
-// algebraically fused residual chain, which was tuned for the TPU's
-// matrix-unit turnaround: this kernel runs the unfused math on its own
-// packed layout (ops/wavenet_gen.py:pack_params).
+// and both of its weight types, at any width it is built for.  It computes
+// the same function (front causal conv, L gated dilated layers reading
+// their history at ring slot t mod d, the skip product, relu -> post1 ->
+// relu -> post2, then the head; teacher-forced priming for t < prime_len,
+// window shift), but not K1's algebraically fused residual chain, which was
+// tuned for the TPU's matrix-unit turnaround: this kernel runs the unfused
+// math on its own packed layout (ops/wavenet_gen.py:pack_params).
 //
 // Heads.  Scalar input ('raw', 'mulaw'): a W-sample window feeds a [W, R]
 // front conv and the mixture-of-logistics head samples the next value.
@@ -25,52 +25,73 @@
 // the weight type, f32 accumulation).  Biases, the lc projection, the ring
 // histories and h stay f32.
 //
+// Widths.  Any L, R, D, S, front taps W, MoL components and softmax classes
+// whose layout fits a block's shared memory.  The kernel works on R, D and
+// S padded to multiples of 8, so every weight row is a whole number of
+// 16-byte chunks in either weight type.  The wrapper zero-pads the weights
+// (ops/wavenet_gen.py:kernel_layout), which is exact: a padded gate channel
+// has zero weights and no lc term, so it gates tanh(0) * sigmoid(0) = 0; a
+// padded residual row stays 0; a padded skip column gives relu(0) = 0 into
+// zero post rows.  The lc projection keeps the caller's D, and the kernel
+// stages each row into the padded layout.  Two instances per weight type:
+// R = D = 32 with the full weight ring (wn_moon's widths, the chain's
+// loops unrolled at compile time and h[r] in a register), and any other
+// width, read at run time.
+//
 // Design.  One thread block of 16 warps per stream (B <= 8 in practice),
 // persistent: it loops over all T samples itself, because blocks run in no
 // order and nothing carries over between them.  A step stages its history
 // rows and lc row and runs the front conv; then three roles run at once,
 // with no block-wide barrier until all L layers are done:
 // - the chain warp (warp 0) runs the L gated layers alone: lane j owns
-//   gate channel j (its filter and gate rows over the 2R inputs, tanh *
-//   sigmoid in its own registers); after a __syncwarp lane r takes the 32
-//   gated values from shared memory for its residual row and keeps h[r] in
-//   a register.  Lanes read their weight rows at a rotated chunk order, so
+//   gate channels j, j + 32, ... (their filter and gate rows over the 2R
+//   inputs, tanh * sigmoid in its own registers); after a __syncwarp lane r
+//   takes the D gated values from shared memory for its residual rows r,
+//   r + 32, ...  Every lane arrives on the layer's mbarrier, one without a
+//   channel too.  Lanes read their weight rows at a rotated chunk order, so
 //   the 16-byte shared loads of a quarter-warp fall in distinct banks;
 // - one producer thread (warp 1) keeps a ring of NSLOT layer slots in
 //   shared memory filled with each layer's tap and residual weights by
 //   Hopper's bulk async copy (cp.async.bulk, completed on a "full"
 //   mbarrier; the chain frees a slot on its "empty" mbarrier).  The ring
 //   wraps across steps, so the next step's first layers load during this
-//   step's tail;
+//   step's tail.  NSLOT is as many slots as fit, up to 8 (bf16) or 4 (f32);
+//   a single slot is enough to be correct;
 // - the skip warps (all but warp 0, warp 1 and the other warps of warp 0's
 //   scheduler) accumulate the skip product from each layer's gated output
 //   as the chain publishes it (one mbarrier per layer), in partial sums.
 // A block-wide barrier then hands the skip sums to relu, post1, post2 and
-// the head.  Shared memory holds the weight ring (80 KB), the window, h,
-// the history rows, lc row, gated outputs, skip/post buffers, logits and
-// partial sums (about 55 KB for the full model).  Activations are rounded
-// to the weight type once, where they are stored.  The ring histories
-// (sum(d)*R f32 per stream, ~655 KB) live in a zeroed global scratch; the
-// weights (~5.4 MB in f32, half that in bf16; the softmax head adds a
-// [256, 512] post2) stay resident in the 50 MB L2.
+// the head.  Shared memory holds the weight ring (NSLOT slots of 5RD
+// weights: 80 KB at wn_moon's widths), the window, h, the history rows, lc
+// row, gated outputs, skip/post buffers, logits and partial sums (L(3R +
+// 3D) + 2R + 2S + C + W + 4096 floats: about 55 KB for wn_moon).
+// smem_layout computes it; widths whose layout exceeds the 232,448 bytes a
+// block may use even with one slot are refused (wavenet_gen_smem_bytes
+// reports the bytes, ops/wavenet_gen.py mirrors it).  Activations are
+// rounded to the weight type once, where they are stored.  The ring
+// histories (sum(d)*R f32 per stream, ~655 KB for wn_moon) live in a
+// zeroed global scratch; the weights (~5.4 MB in f32 for wn_moon, half
+// that in bf16; the softmax head adds a [256, 512] post2) stay resident in
+// the 50 MB L2.
 //
 // What bounds it on this card: the chain is a serial latency chain of L =
 // 50 dependent layers, one warp's instruction latency per layer (its
 // shared loads, multiply-adds, tanh and exp, two __syncwarp), ~0.5 us a
-// layer on an H100; and the skip product's weights (1.6 MB a step in bf16,
-// 3.2 MB in f32) stream from L2 into one SM, at a rate set by the loads
-// each skip thread keeps in flight.  The two share the SM's memory pipe:
-// run together they take longer than either alone.  The card's arithmetic
-// and memory rates are far from the limit.  Later versions would split
-// each stream's weights across a thread-block cluster's shared memory,
-// serve all streams from one weight read, and use warp-level MMA.
+// layer on an H100 at R = D = 32, and it grows with R * D / 32 per lane;
+// and the skip product's weights (1.6 MB a step in bf16, 3.2 MB in f32, for
+// wn_moon) stream from L2 into one SM, at a rate set by the loads each
+// skip thread keeps in flight.  The two share the SM's memory pipe: run
+// together they take longer than either alone.  The card's arithmetic and
+// memory rates are far from the limit.  Later versions would split each
+// stream's weights across a thread-block cluster's shared memory (which
+// also lifts the width ceiling), serve all streams from one weight read,
+// and use warp-level MMA.
 //
 // Noise: counter-based Philox (curand_kernel.h), seeded by the wrapper from
 // a torch.Generator, one subsequence per (stream, lane) of warp 0; or, for
 // tests, a noise tensor of uniforms ([T, B, nr_mix+1] for MoL, [T, B, Q]
 // for the softmax head) that replaces it.  Uniforms are clipped to
-// [1e-5, 1-1e-5].  In deterministic MoL mode tied maxima are averaged, as
-// K1 does.
+// [1e-5, 1-1e-5].  Tied maxima of the MoL head are averaged, as K1 does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
@@ -79,46 +100,62 @@
 
 namespace {
 
-constexpr int R = 32;      // residual channels
-constexpr int D = 32;      // dilation (gate) channels: one per chain lane
+constexpr int FW = 32;     // R = D of the specialised instance
 constexpr int NT = 512;    // threads: 16 warps
 constexpr int PRODUCER = 32;  // the thread that issues the weight copies
 // Skip warps: every warp but the chain warp, the producer's and the other
 // warps of the chain warp's scheduler (warp w issues on scheduler w mod 4),
 // so the chain has its scheduler to itself.
 constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);
-constexpr int TAP = 2 * D * 2 * R;  // one layer's w_tap [2D, 2R]
-constexpr int RES = R * D;          // one layer's w_res_t [R, D]
-constexpr int MAX_MOL = 96;   // MoL output channels (3 * nr_mix, nr_mix <= 32)
-constexpr int MAX_C = 256;    // output channels (softmax head: Q <= 256)
+constexpr int MAX_S = 8 * NT;  // skip channels: the partial sums' buffer
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use (H100)
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr float U_MIN = 1e-5f;
 constexpr float U_MAX = 1.0f - 1e-5f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Layer slots of the weight ring: 80 KB of shared memory either way.
+// The most layer slots of the weight ring (80 KB of shared memory either
+// way at R = D = 32).
 template <typename WT>
 __host__ __device__ constexpr int nslot() { return sizeof(WT) == 2 ? 8 : 4; }
+__host__ __device__ constexpr int max_slots(int wsize) {
+  return wsize == 2 ? 8 : 4;
+}
+// The kernel's widths: R, D and S padded to whole 16-byte chunks.
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) & ~7; }
+__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
 
 // Byte offsets into the dynamic shared memory: the weight ring, its
-// mbarriers, the f32 buffers, the int tables.
+// mbarriers, the f32 buffers, the int tables.  R, D and S are the padded
+// widths, so every f32 buffer starts 16-byte aligned.
 struct Smem {
   unsigned bars, f32s, ints, total;
 };
-__host__ __device__ inline Smem smem_layout(int L, int S, int nslot,
+__host__ __device__ inline Smem smem_layout(int L, int R, int D, int S,
+                                            int C, int W, int nslot,
                                             int wsize) {
   Smem m;
-  m.bars = (unsigned)(nslot * (TAP + RES) * wsize);
+  m.bars = (unsigned)(nslot * 5 * R * D * wsize);
   m.f32s = (m.bars + 8u * (2 * nslot + L) + 15u) & ~15u;
-  const unsigned floats = 32 + 2 * R + L * R + L * 2 * D + L * D + 2 * S +
-                          MAX_C + L * R + 8 * NT;
+  const unsigned floats = up4(W) + 2 * R + L * R + L * 2 * D + L * D +
+                          2 * S + up4(C) + L * R + 8 * NT;
   m.ints = m.f32s + 4u * floats;
   m.total = m.ints + 4u * 3 * L;
   return m;
 }
 
+// The most weight slots whose layout fits a block (padded widths), or 0
+// when not even one does.
+inline int fit_slots(int L, int R, int D, int S, int C, int W, int wsize) {
+  for (int n = max_slots(wsize); n >= 1; --n)
+    if (smem_layout(L, R, D, S, C, W, n, wsize).total <= (unsigned)SMEM_LIMIT)
+      return n;
+  return 0;
+}
+
+// R, D and S are the padded widths; lc_proj keeps the caller's D (Dlc).
 struct Params {
-  const float* lc_proj;    // [B, T, L*2D]   per layer [filter D | gate D]
+  const float* lc_proj;    // [B, T, L*2Dlc] per layer [filter Dlc | gate Dlc]
   const void* w_tap;       // [L, 2D, 2R]    row 2j+f, cols [old tap | cur tap]
   const void* w_res_t;     // [L, R, D]
   const float* b_res;      // [L, R]
@@ -136,7 +173,8 @@ struct Params {
   float* out;              // [B, T]
   unsigned long long seed;
   long long ring_stride;
-  int B, T, L, W, S, C, prime_len, deterministic, quantized;
+  int B, T, L, R, D, Dlc, W, S, C, prime_len, deterministic, quantized;
+  int nslot;
   float temperature;
 };
 
@@ -296,7 +334,8 @@ __device__ __forceinline__ float warp_max(float v) {
 // per iteration (neighbouring threads read neighbouring words); bf16 eight
 // columns per thread with one 16-byte load per row, eight rows loaded
 // before use, over one of H = NT / (S/8) chunks of the rows, the H partial
-// sums (in `part`, [8 * NT]) added after a barrier.
+// sums (in `part`, [8 * NT]) added after a barrier.  K and S are multiples
+// of 8.
 template <typename WT>
 __device__ __forceinline__ void dense_relu(const float* x, const WT* M,
                                            const float* bias, int K, int S,
@@ -352,34 +391,43 @@ __device__ __forceinline__ void dense_relu(const float* x, const WT* M,
 }
 
 // Mixture-of-logistics head, by warp 0: Gumbel-max component, then the
-// logistic inverse CDF, clipped to [-1, 1].
+// logistic inverse CDF, clipped to [-1, 1].  Lane takes components lane +
+// 32k, keeping its best score and the count, summed means and summed log
+// scales of its components tied at it; the lanes at the warp's maximum
+// pool theirs, so tied maxima share the weight.  Philox: each lane draws
+// one uniform per component, then lane 0 the logistic draw.
 __device__ float mol_head(const Params& p, const float* logits, int t, int b,
                           int lane, curandStatePhilox4_32_10_t* rng) {
   const int nr = p.C / 3;
-  float u_sel = 0.5f, u = 0.5f;
+  const float* nz =
+      (!p.deterministic && p.noise != nullptr)
+          ? p.noise + ((long long)t * p.B + b) * (nr + 1) : nullptr;
+  float best = -INFINITY, n = 0.f, mean = 0.f, ls = 0.f;
+  for (int c = lane; c < nr; c += 32) {
+    float score = logits[c];
+    if (!p.deterministic)
+      score -= logf(-logf(clip_u(nz ? nz[c] : curand_uniform(rng))));
+    if (score > best) {
+      best = score; n = 1.f; mean = logits[nr + c]; ls = logits[2 * nr + c];
+    } else if (score == best) {
+      n += 1.f; mean += logits[nr + c]; ls += logits[2 * nr + c];
+    }
+  }
+  float u = 0.5f;
   if (!p.deterministic) {
-    if (p.noise == nullptr) {
-      if (lane < nr) u_sel = clip_u(curand_uniform(rng));
+    if (nz == nullptr) {
       const float u0 = (lane == 0) ? curand_uniform(rng) : 0.f;
       u = clip_u(__shfl_sync(FULL, u0, 0));
     } else {
-      const float* nz = p.noise + ((long long)t * p.B + b) * (nr + 1);
-      if (lane < nr) u_sel = clip_u(nz[lane]);
       u = clip_u(nz[nr]);
     }
   }
-  float score = -INFINITY;
-  if (lane < nr)
-    score = p.deterministic ? logits[lane] : logits[lane] - logf(-logf(u_sel));
-  const float m = warp_max(score);
-  const float sel = (lane < nr && score >= m) ? 1.f : 0.f;
-  const float cnt = warp_sum(sel);     // ties share the weight
-  const float mean = warp_sum(lane < nr ? sel * logits[nr + lane] : 0.f) / cnt;
-  if (p.deterministic) return fminf(fmaxf(mean, -1.f), 1.f);
-  const float ls = fmaxf(
-      warp_sum(lane < nr ? sel * logits[2 * nr + lane] : 0.f) / cnt,
-      LOG_SCALE_MIN);
-  const float x = mean + expf(ls) * (logf(u) - logf(1.f - u));
+  const bool top = best >= warp_max(best);
+  const float cnt = warp_sum(top ? n : 0.f);     // ties share the weight
+  const float mu = warp_sum(top ? mean : 0.f) / cnt;
+  if (p.deterministic) return fminf(fmaxf(mu, -1.f), 1.f);
+  const float s = fmaxf(warp_sum(top ? ls : 0.f) / cnt, LOG_SCALE_MIN);
+  const float x = mu + expf(s) * (logf(u) - logf(1.f - u));
   return fminf(fmaxf(x, -1.f), 1.f);
 }
 
@@ -452,8 +500,9 @@ __device__ __forceinline__ int skip_groups(int S) {
 template <typename WT>
 __device__ __forceinline__ void skip_partial(const float* gat, const WT* M,
                                              uint64_t* ready,
-                                             unsigned parity, int L, int S,
-                                             float* part, int i, int lane) {
+                                             unsigned parity, int L, int D,
+                                             int S, float* part, int i,
+                                             int lane) {
   constexpr int V = skip_cols<WT>();
   constexpr int U = sizeof(WT) == 2 ? 8 : 16;
   const int P = S / V, H = skip_groups<WT>(S), n = P * H;
@@ -497,9 +546,11 @@ __device__ __forceinline__ void skip_partial(const float* gat, const WT* M,
   }
 }
 
-// The chain warp's L layers of step t.  `g` counts the layer slots the
-// chain has consumed over the launch (slot g mod NSLOT, phase g / NSLOT);
-// layer l's gated output completes phase `parity` of ready[l].
+// The chain warp's L layers of step t at R = D = 32: lane j owns gate
+// channel j and residual row j, and keeps h[j] in a register.  `g` counts
+// the layer slots the chain has consumed over the launch (slot g mod NSLOT,
+// phase g / NSLOT); layer l's gated output completes phase `parity` of
+// ready[l].
 template <typename WT>
 __device__ __forceinline__ void run_chain(
     const WT* wring, uint64_t* full, uint64_t* empty, uint64_t* ready,
@@ -507,6 +558,7 @@ __device__ __forceinline__ void run_chain(
     float* hr, const float* olds, const float* lcs, float* gat,
     const float* bres, const int* cur, float* ring, int L, int lane,
     long long& g) {
+  constexpr int R = FW, D = FW, TAP = 4 * R * D, RES = R * D;
   constexpr int NSLOT = nslot<WT>();
   constexpr int CH = Chunk<WT>::N;
   constexpr int NK = 2 * R / CH;   // chunks of one tap row
@@ -550,28 +602,95 @@ __device__ __forceinline__ void run_chain(
   }
 }
 
-// Layer slot g of the launch: layer g mod L's tap and residual weights.
+// The chain at any (padded) width: lane owns gate channels j = lane + 32m
+// and residual rows r = lane + 32m; h stays in shared memory (f32).  The
+// chunk rotation starts each row at its own index modulo the row's chunk
+// count.  (slot, phase) is the chain's next layer slot of the ring.
+template <typename WT>
+__device__ __forceinline__ void run_chain_any(
+    const WT* wring, uint64_t* full, uint64_t* empty, uint64_t* ready,
+    float* h, float* hr, const float* olds, const float* lcs, float* gat,
+    const float* bres, const int* cur, float* ring, int L, int R, int D,
+    int nslot, int lane, int& slot, unsigned& phase) {
+  constexpr int CH = Chunk<WT>::N;
+  const int NK = 2 * R / CH, NKR = D / CH;
+  const int TAP = 4 * R * D, RES = R * D;
+  for (int l = 0; l < L; ++l) {
+    mbar_wait(&full[slot], phase);
+    const WT* wl = wring + slot * (TAP + RES);
+    const float* xo = olds + l * R;
+    for (int j = lane; j < D; j += 32) {
+      const WT* wf = wl + (2 * j) * 2 * R;
+      const WT* wg = wf + 2 * R;
+      float af[4] = {0.f, 0.f, 0.f, 0.f}, ag[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = j % NK;
+      for (int i = 0; i < NK; ++i) {
+        const int k = c * CH;
+        Chunk<WT>::two(wf + k, wg + k, k < R ? xo + k : hr + (k - R), af,
+                       ag);
+        if (++c == NK) c = 0;
+      }
+      const float f = sum4(af) + lcs[l * 2 * D + j];
+      const float gs = sum4(ag) + lcs[l * 2 * D + D + j];
+      gat[l * D + j] = rnd<WT>(tanhf(f) * (1.f / (1.f + expf(-gs))));
+    }
+    mbar_arrive(&ready[l]);   // every lane, with or without a channel
+    __syncwarp();
+    const WT* wr = wl + TAP;
+    for (int r = lane; r < R; r += 32) {
+      float ar[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = r % NKR;
+      for (int i = 0; i < NKR; ++i) {
+        const int k = c * CH;
+        Chunk<WT>::one(wr + r * D + k, gat + l * D + k, ar);
+        if (++c == NKR) c = 0;
+      }
+      const float hv = h[r];
+      ring[cur[l] + r] = hv;   // this layer's input, at slot t mod d
+      const float hn = hv + (sum4(ar) + bres[l * R + r]);
+      h[r] = hn;
+      hr[r] = rnd<WT>(hn);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (++slot == nslot) { slot = 0; phase ^= 1; }
+  }
+}
+
+// Fill ring slot s with layer l's tap and residual weights (tap and res
+// weights each).
 template <typename WT>
 __device__ __forceinline__ void issue_layer(WT* wring, uint64_t* full,
                                             const WT* w_tap,
-                                            const WT* w_res_t, int L,
-                                            long long g) {
-  const int s = (int)(g % nslot<WT>());
-  const long long l = g % L;
-  WT* dst = wring + s * (TAP + RES);
-  mbar_expect_tx(&full[s], (TAP + RES) * sizeof(WT));
-  bulk_copy(dst, w_tap + l * TAP, TAP * sizeof(WT), &full[s]);
-  bulk_copy(dst + TAP, w_res_t + l * RES, RES * sizeof(WT), &full[s]);
+                                            const WT* w_res_t, int s, int l,
+                                            int tap, int res) {
+  WT* dst = wring + s * (tap + res);
+  mbar_expect_tx(&full[s], (tap + res) * sizeof(WT));
+  bulk_copy(dst, w_tap + (long long)l * tap, tap * sizeof(WT), &full[s]);
+  bulk_copy(dst + tap, w_res_t + (long long)l * res, res * sizeof(WT),
+            &full[s]);
 }
 
-template <typename WT>
+// The producer's next layer slot: ring slot s of phase ph, layer l.
+__device__ __forceinline__ void advance(int& s, unsigned& ph, int& l,
+                                        int nslot, int L) {
+  if (++l == L) l = 0;
+  if (++s == nslot) { s = 0; ph ^= 1; }
+}
+
+// RF = FW: R = D = 32 with nslot<WT>() slots; RF = 0: the widths and the
+// slot count of Params.
+template <typename WT, int RF>
 __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NSLOT = nslot<WT>();
+  constexpr bool FIXED = RF != 0;
+  const int NSLOT = FIXED ? nslot<WT>() : p.nslot;
+  const int R = FIXED ? RF : p.R, D = FIXED ? RF : p.D;
+  const int DL = FIXED ? RF : p.Dlc;     // lc_proj's D
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int L = p.L, W = p.W, S = p.S, C = p.C;
-  const int LD2 = L * 2 * D;
+  const int LD2 = L * 2 * D, TAP = 4 * R * D, RES = R * D;
   const WT* w_tap = static_cast<const WT*>(p.w_tap);
   const WT* w_res_t = static_cast<const WT*>(p.w_res_t);
   const WT* front = static_cast<const WT*>(p.front);
@@ -579,21 +698,21 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   const WT* post1 = static_cast<const WT*>(p.post1);
   const WT* post2_t = static_cast<const WT*>(p.post2_t);
 
-  const Smem m = smem_layout(L, S, NSLOT, sizeof(WT));
+  const Smem m = smem_layout(L, R, D, S, C, W, NSLOT, sizeof(WT));
   WT* wring = reinterpret_cast<WT*>(smem_raw);  // [NSLOT][TAP + RES]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + m.bars);
   uint64_t* empty = full + NSLOT;
   uint64_t* ready = empty + NSLOT;   // [L] layer l's gated output stored
-  float* win = reinterpret_cast<float*>(smem_raw + m.f32s);  // [32]
-  float* h = win + 32;               // [R]   f32 layer-0 input
+  float* win = reinterpret_cast<float*>(smem_raw + m.f32s);  // [W]
+  float* h = win + up4(W);           // [R]   f32 layer-0 input
   float* hr = h + R;                 // [R]   the chain's input, rounded
   float* olds = hr + R;              // [L*R] history rows h[t-d] (rounded)
   float* lcs = olds + L * R;         // [L*2D] lc projection row of this step
   float* gat = lcs + LD2;            // [L*D] gated outputs (rounded)
   float* z = gat + L * D;            // [S]
   float* z1 = z + S;                 // [S]
-  float* logits = z1 + S;            // [MAX_C]
-  float* bres = logits + MAX_C;      // [L*R] residual biases
+  float* logits = z1 + S;            // [C]
+  float* bres = logits + up4(C);     // [L*R] residual biases
   float* part = bres + L * R;        // [8 * NT] partial sums
   int* dil = reinterpret_cast<int*>(smem_raw + m.ints);  // [L]
   int* roff = dil + L;               // [L] ring offset of each layer
@@ -607,9 +726,12 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
     for (int l = 0; l < L; ++l) mbar_init(&ready[l], 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (tid < 32) win[tid] = p.quantized ? -1.f : 0.f;
+  for (int i = tid; i < W; i += NT) win[i] = p.quantized ? -1.f : 0.f;
   for (int l = tid; l < L; l += NT) dil[l] = p.dil[l];
   for (int i = tid; i < L * R; i += NT) bres[i] = p.b_res[i];
+  // Padded gate channels take no lc term: their lc entries stay 0.
+  if (DL != D)
+    for (int i = tid; i < LD2; i += NT) lcs[i] = 0.f;
   __syncthreads();
   if (tid == 0) {
     int o = 0;
@@ -620,14 +742,20 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   if (philox && warp == 0)
     curand_init(p.seed, (unsigned long long)b * 32 + lane, 0, &rng);
   float* ring = p.ring + (long long)b * p.ring_stride;
-  const float* lc_b = p.lc_proj + (long long)b * p.T * LD2;
-  // The producer's next layer slot, and the chain's.
+  const int LDL = L * 2 * DL;
+  const float* lc_b = p.lc_proj + (long long)b * p.T * LDL;
+  // The producer's next layer slot (ring slot ps of phase pph, layer pl)
+  // and the count it has issued; the chain's next slot.
   const long long n_slots = (long long)p.T * L;
   const int n_groups = skip_groups<WT>(S);   // the skip's row groups
   long long g_load = 0, g_chain = 0;
+  int ps = 0, pl = 0, cs = 0;
+  unsigned pph = 0, cph = 0;
   if (tid == PRODUCER)
-    for (; g_load < NSLOT && g_load < n_slots; ++g_load)
-      issue_layer(wring, full, w_tap, w_res_t, L, g_load);
+    for (; g_load < NSLOT && g_load < n_slots; ++g_load) {
+      issue_layer(wring, full, w_tap, w_res_t, ps, pl, TAP, RES);
+      advance(ps, pph, pl, NSLOT, L);
+    }
   __syncthreads();
 
   const int r16 = tid >> 4, g16 = tid & 15;
@@ -640,54 +768,71 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
     if (tid == 0 && t < p.prime_len)
       win[W - 1] = p.primed[(long long)t * p.B + b];
     // Stage every layer's history row (slot t mod d, read before this
-    // step's stores) and the lc projection row.
+    // step's stores) and the lc projection row (into the padded layout).
     for (int i = tid; i < L * R; i += NT) {
       const int l = i / R;
       olds[i] = rnd<WT>(ring[roff[l] + (t % dil[l]) * R + (i % R)]);
     }
     for (int l = tid; l < L; l += NT) cur[l] = roff[l] + (t % dil[l]) * R;
-    const float* lrow = lc_b + (long long)t * LD2;
-    for (int i = tid; i < LD2; i += NT) lcs[i] = lrow[i];
+    const float* lrow = lc_b + (long long)t * LDL;
+    if (DL == D) {
+      for (int i = tid; i < LD2; i += NT) lcs[i] = lrow[i];
+    } else {
+      for (int i = tid; i < LDL; i += NT) {
+        const int q = i / DL;        // (layer, filter or gate)
+        lcs[q * D + (i - q * DL)] = lrow[i];
+      }
+    }
     __syncthreads();
 
     if (p.quantized) {
       // One-hot front conv: h[r] = sum over the window's classes c_w >= 0
       // of front[w, c_w, r].
-      if (tid < R) {
+      for (int r = tid; r < R; r += NT) {
         float acc = 0.f;
         for (int w = 0; w < W; ++w) {
           const int c = (int)win[w];
-          if (c >= 0) acc += ldw(front + ((long long)w * C + c) * R + tid);
+          if (c >= 0) acc += ldw(front + ((long long)w * C + c) * R + r);
         }
-        h[tid] = acc;
-        hr[tid] = rnd<WT>(acc);
+        h[r] = acc;
+        hr[r] = rnd<WT>(acc);
       }
     } else {
-      // Front causal conv: h[r] = sum_w win[w] * front[w, r].
-      float acc = 0.f;
-      for (int w = g16; w < W; w += 16)
-        acc += rnd<WT>(win[w]) * ldw(front + r16 * W + w);
-      for (int o = 8; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
-      if (g16 == 0) {
-        h[r16] = acc;
-        hr[r16] = rnd<WT>(acc);
+      // Front causal conv: h[r] = sum_w win[w] * front[r, w], 16 threads a
+      // row.
+      for (int r0 = 0; r0 < R; r0 += NT / 16) {
+        const int r = r0 + r16;
+        float acc = 0.f;
+        if (r < R)
+          for (int w = g16; w < W; w += 16)
+            acc += rnd<WT>(win[w]) * ldw(front + r * W + w);
+        for (int o = 8; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+        if (g16 == 0 && r < R) {
+          h[r] = acc;
+          hr[r] = rnd<WT>(acc);
+        }
       }
     }
     __syncthreads();
 
     if (warp == 0) {
-      run_chain<WT>(wring, full, empty, ready, t & 1, h, hr, olds, lcs, gat,
-                    bres, cur, ring, L, lane, g_chain);
+      if constexpr (FIXED)
+        run_chain<WT>(wring, full, empty, ready, t & 1, h, hr, olds, lcs,
+                      gat, bres, cur, ring, L, lane, g_chain);
+      else
+        run_chain_any<WT>(wring, full, empty, ready, h, hr, olds, lcs, gat,
+                          bres, cur, ring, L, R, D, NSLOT, lane, cs, cph);
     } else if (tid == PRODUCER) {
       // Refill each slot as the chain frees it: this step's layer l frees
       // the slot of layer slot g = t*L + l + NSLOT.
       for (int i = 0; i < L && g_load < n_slots; ++i, ++g_load) {
-        mbar_wait(&empty[g_load % NSLOT],
-                  (unsigned)(((g_load / NSLOT) & 1) ^ 1));
-        issue_layer(wring, full, w_tap, w_res_t, L, g_load);
+        mbar_wait(&empty[ps], pph ^ 1);
+        issue_layer(wring, full, w_tap, w_res_t, ps, pl, TAP, RES);
+        advance(ps, pph, pl, NSLOT, L);
       }
     } else if (skip_i >= 0) {
-      skip_partial<WT>(gat, w_skip, ready, t & 1, L, S, part, skip_i, lane);
+      skip_partial<WT>(gat, w_skip, ready, t & 1, L, D, S, part, skip_i,
+                       lane);
     }
     __syncthreads();
 
@@ -709,38 +854,75 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
     }
     __syncthreads();
 
-    // Sampling by warp 0, then the window shift: the new sample (or class)
-    // becomes the window's newest column.
+    // Sampling by warp 0, then the window shift, 32 columns at a time from
+    // the oldest: the new sample (or class) becomes the newest column.
     if (warp == 0) {
       const float x = p.quantized ? softmax_head(p, logits, t, b, lane, &rng)
                                   : mol_head(p, logits, t, b, lane, &rng);
       if (lane == 0) p.out[(long long)b * p.T + t] = x;
-      const float nxt = (lane < W - 1) ? win[lane + 1] : x;
-      __syncwarp();
-      if (lane < W) win[lane] = nxt;
-      __syncwarp();
+      for (int w0 = 0; w0 < W; w0 += 32) {
+        const int w = w0 + lane;
+        const float nxt = (w < W - 1) ? win[w + 1] : x;
+        __syncwarp();
+        if (w < W) win[w] = nxt;
+        __syncwarp();
+      }
     }
     __syncthreads();
   }
 }
 
-template <typename WT>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_layout(p.L, p.S, nslot<WT>(), sizeof(WT)).total;
+template <typename WT, int RF>
+int launch(const Params& p, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      wavenet_gen_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wavenet_gen_kernel<WT, RF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  wavenet_gen_kernel<WT><<<p.B, NT, smem, stream>>>(p);
+  wavenet_gen_kernel<WT, RF><<<p.B, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// wn_moon's widths with the full ring take the R = D = 32 instance.
+template <typename WT>
+int launch_widths(Params p, cudaStream_t stream) {
+  const int wsize = (int)sizeof(WT);
+  p.nslot = fit_slots(p.L, p.R, p.D, p.S, p.C, p.W, wsize);
+  if (p.nslot < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      smem_layout(p.L, p.R, p.D, p.S, p.C, p.W, p.nslot, wsize).total;
+  if (p.R == FW && p.D == FW && p.Dlc == FW && p.nslot == nslot<WT>())
+    return launch<WT, FW>(p, smem, stream);
+  return launch<WT, 0>(p, smem, stream);
 }
 
 }  // namespace
 
+// Shared memory bytes a block of the sampler takes at the caller's widths
+// (L layers, R residual, D gate and S skip channels, C output channels or
+// classes, W front taps; bf16 != 0 for bf16 weights), with as many weight
+// slots as fit; with one slot when not even one fits, and then the bytes
+// exceed the 232,448 a block may use.
+extern "C" int wavenet_gen_smem_bytes(int L, int R, int D, int S, int C,
+                                      int W, int bf16) {
+  const int wsize = bf16 ? 2 : 4;
+  const int n = fit_slots(L, pad8(R), pad8(D), pad8(S), C, W, wsize);
+  return (int)smem_layout(L, pad8(R), pad8(D), pad8(S), C, W, n > 0 ? n : 1,
+                          wsize).total;
+}
+
+// The weight ring's slots at these widths (as above), or 0 when they do not
+// fit.
+extern "C" int wavenet_gen_slots(int L, int R, int D, int S, int C, int W,
+                                 int bf16) {
+  return fit_slots(L, pad8(R), pad8(D), pad8(S), C, W, bf16 ? 2 : 4);
+}
+
 // Launches the sampler on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).  `front` is [R, W] for scalar input and
-// [W, C, R] for the softmax head (quantized != 0); `bf16` selects
-// __nv_bfloat16 weights.  The wrapper (ops/wavenet_gen.py) checks shapes,
+// the launch was accepted).  R, D and S are the caller's widths: lc_proj is
+// [B, T, L*2D], every other tensor is in the layout of R, D and S padded
+// to multiples of 8 (ops/wavenet_gen.py:kernel_layout).  `front` is
+// [R, W] for scalar input and [W, C, R] for the softmax head (quantized !=
+// 0); `bf16` selects __nv_bfloat16 weights.  The wrapper checks shapes,
 // types and devices before calling.
 extern "C" int wavenet_gen_launch(
     const float* lc_proj, const void* w_tap, const void* w_res_t,
@@ -749,21 +931,21 @@ extern "C" int wavenet_gen_launch(
     const void* post2_t, const float* b2, const int* dil,
     const float* primed, const float* noise, float* ring, float* out,
     unsigned long long seed, long long ring_stride, int B, int T, int L,
-    int W, int S, int C, int prime_len, int deterministic, int quantized,
-    int bf16, float temperature, void* stream) {
-  const bool bad_head = quantized ? (C < 1 || C > MAX_C || !(temperature > 0.f))
-                                  : (C % 3 != 0 || C > MAX_MOL);
+    int R, int D, int W, int S, int C, int prime_len, int deterministic,
+    int quantized, int bf16, float temperature, void* stream) {
+  const bool bad_head = quantized ? (C < 1 || !(temperature > 0.f))
+                                  : (C < 3 || C % 3 != 0);
   // The bulk copies read 16-byte aligned spans.
   const bool misaligned =
       (reinterpret_cast<uintptr_t>(w_tap) | reinterpret_cast<uintptr_t>(w_res_t)) & 15;
-  if (B < 1 || T < 1 || L < 1 || W < 1 || W > 32 || S % 8 != 0 ||
-      S > 8 * NT || bad_head || misaligned ||
+  if (B < 1 || T < 1 || L < 1 || R < 1 || D < 1 || W < 1 || S < 1 ||
+      pad8(S) > MAX_S || bad_head || misaligned ||
       (prime_len > 0 && primed == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{lc_proj, w_tap, w_res_t, b_res, front, w_skip, skip_bias,
            post1, b1, post2_t, b2, dil, primed, noise, ring, out,
-           seed, ring_stride, B, T, L, W, S, C, prime_len, deterministic,
-           quantized, temperature};
+           seed, ring_stride, B, T, L, pad8(R), pad8(D), D, W, pad8(S), C,
+           prime_len, deterministic, quantized, 0, temperature};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  return bf16 ? launch_widths<__nv_bfloat16>(p, s) : launch_widths<float>(p, s);
 }

@@ -5,9 +5,10 @@ Counterpart of the JAX package's ``ops/wavenet_pallas.py``
 (``pack_params``, ``precompute_lc_proj``, ``pallas_generate``,
 ``pallas_incremental_generate``).  The kernel, ``csrc/wavenet_gen.cu``,
 replaces the Pallas kernel ``pallas_generate`` with both of its sampling
-heads (mixture of logistics for scalar input, 256-way softmax for
-``mulaw-quantize``) and both weight types (f32, bf16); it computes the same
-function on an unfused packed layout of its own:
+heads (mixture of logistics for scalar input, Q-way softmax for
+``mulaw-quantize``) and both weight types (f32, bf16), at any width whose
+layout fits a block's shared memory (``kernel_limits_error``); it computes
+the same function on an unfused packed layout of its own:
 
   w_tap     [L, 2D, 2R]  row 2j+f (f=0 filter, 1 gate) of channel j over
                          [old tap (h[t-d]) | current tap (h[t])]
@@ -30,13 +31,18 @@ Weights (``WEIGHTS``) are stored in ``weight_dtype``; biases and the lc
 projection stay f32, the set the Pallas kernel keeps in f32.  With bf16
 weights every product rounds its activation to bf16 and accumulates in f32,
 as the Pallas kernel does.
+
+The kernel reads this layout with R, D and S zero-padded to multiples of 8
+(``kernel_layout``, made by the wrapper; the lc projection keeps the
+caller's D).  ``pack_params``, the twin and ``generate_flops`` /
+``generate_bytes`` keep the caller's widths.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +57,14 @@ Packed = Dict[str, torch.Tensor]
 WEIGHTS = ("w_tap", "w_res_t", "front_t", "front_oh", "w_skip", "post1",
            "post2_t")
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
+# The kernel's widths are padded to whole 16-byte chunks: PAD channels.
+PAD = 8
+# Shared memory one thread block may use on an H100 (sm_90).
+SMEM_LIMIT = 232_448
+_THREADS = 512
+_MAX_SKIP = 8 * _THREADS      # the kernel's partial sums: S <= 4096
+_MAX_SLOTS = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def pack_params(cfg: WaveNetConfig, params: Params,
@@ -246,37 +260,120 @@ def generate_plain(packed: Packed, lc_proj: torch.Tensor,
     return out
 
 
-def _limits_error(R: int, D: int, W: int, S: int, C: int,
-                  quantized: bool) -> Optional[str]:
+def _pad(n: int, to: int = PAD) -> int:
+    return -(-n // to) * to
+
+
+def _smem_total(L: int, R: int, D: int, S: int, C: int, W: int,
+                slots: int, wsize: int) -> int:
+    """``smem_layout(...).total`` of ``csrc/wavenet_gen.cu`` at padded
+    widths: the weight ring, its mbarriers (and one per layer), the f32
+    buffers, the int tables."""
+    bars = slots * 5 * R * D * wsize
+    f32s = (bars + 8 * (2 * slots + L) + 15) & ~15
+    floats = (_pad(W, 4) + 2 * R + L * R + 2 * L * D + L * D + 2 * S
+              + _pad(C, 4) + L * R + 8 * _THREADS)
+    return f32s + 4 * floats + 12 * L
+
+
+def kernel_smem(L: int, R: int, D: int, S: int, C: int, W: int,
+                weight_dtype: torch.dtype) -> Tuple[int, int]:
+    """(shared memory bytes, weight slots) of one block of the kernel at the
+    caller's widths, as ``wavenet_gen_smem_bytes`` / ``wavenet_gen_slots``
+    of ``csrc/wavenet_gen.cu`` compute them: as many slots of the weight
+    ring as fit in ``SMEM_LIMIT``, up to 8 (bf16) or 4 (f32); (bytes with
+    one slot, 0) when not even one fits."""
+    R, D, S = _pad(R), _pad(D), _pad(S)
+    wsize = torch.finfo(weight_dtype).bits // 8
+    for slots in range(_MAX_SLOTS[weight_dtype], 0, -1):
+        total = _smem_total(L, R, D, S, C, W, slots, wsize)
+        if total <= SMEM_LIMIT:
+            return total, slots
+    return total, 0
+
+
+def _limits_error(L: int, R: int, D: int, W: int, S: int, C: int,
+                  quantized: bool, weight_dtype: torch.dtype
+                  ) -> Optional[str]:
     """Why the CUDA kernel cannot run these widths, or None when it can."""
-    if R != 32 or D != 32:
-        return (f"the CUDA kernel is laid out for R = D = 32 channels, got "
-                f"R={R}, D={D}")
-    if W > 32:
-        return f"the CUDA kernel takes up to 32 front taps, got W={W}"
-    if S % 8 or S > 4096:
-        return (f"the CUDA kernel takes S <= 4096 skip channels, a multiple "
-                f"of 8, got S={S}")
-    if quantized and C > 256:
-        return f"the softmax head takes up to 256 classes, got {C}"
-    if not quantized and (C % 3 or C > 96):
-        return f"the MoL head takes 3 * nr_mix <= 96 channels, got {C}"
+    if weight_dtype not in WEIGHT_DTYPES:
+        return (f"the CUDA kernel takes weights of {WEIGHT_DTYPES}, got "
+                f"{weight_dtype}")
+    if _pad(S) > _MAX_SKIP:
+        return (f"the CUDA kernel takes up to {_MAX_SKIP} skip channels, "
+                f"got S={S}")
+    if not quantized and (C < 3 or C % 3):
+        return f"the MoL head takes 3 * nr_mix channels, got {C}"
+    nbytes, slots = kernel_smem(L, R, D, S, C, W, weight_dtype)
+    if slots == 0:
+        return (f"the CUDA kernel needs {nbytes:,} bytes of shared memory "
+                f"per block at L={L}, R={R}, D={D}, S={S} with "
+                f"{str(weight_dtype).replace('torch.', '')} weights and one "
+                f"weight slot, over the {SMEM_LIMIT:,} bytes a block may use")
     return None
 
 
-def kernel_limits_error(cfg: WaveNetConfig) -> Optional[str]:
-    """Why the CUDA kernel cannot run ``cfg``'s widths (the message names
-    the limit), or None when it can.  The kernel takes R = D = 32, at most
-    32 front taps, S <= 4096 skip channels (a multiple of 8), a MoL head of
-    up to 96 channels and a softmax head of up to 256 classes; the plain
-    twin takes any width."""
+def kernel_limits_error(cfg: WaveNetConfig,
+                        weight_dtype: torch.dtype = torch.bfloat16
+                        ) -> Optional[str]:
+    """Why the CUDA kernel cannot run ``cfg``'s widths with ``weight_dtype``
+    weights (the message names the limit), or None when it can.  The kernel
+    takes any R, D, front taps, MoL components and softmax classes, and S
+    up to 4096, as long as one block's shared memory (``kernel_smem``: the
+    weight ring of at least one layer slot, 5RD weights, plus L(3R + 3D)
+    + 2S + C + W + 4096 floats of buffers) fits in the 232,448 bytes an
+    H100 block may use; and, as the JAX package's kernel, two taps per
+    dilated layer (``filter_width`` 2).  The plain twin takes any width."""
+    if cfg.filter_width != 2:
+        return (f"the generation kernel takes filter_width 2 (two taps per "
+                f"dilated layer), got {cfg.filter_width}")
     scalar = cfg.scalar_input
     return _limits_error(
-        cfg.residual_channels, cfg.dilation_channels,
+        len(cfg.dilations), cfg.residual_channels, cfg.dilation_channels,
         cfg.initial_filter_width if scalar else cfg.filter_width,
         cfg.skip_channels,
         cfg.out_channels if scalar else cfg.quantization_channels,
-        not scalar)
+        not scalar, weight_dtype)
+
+
+def kernel_layout(packed: Packed) -> Packed:
+    """``packed`` with R, D and S zero-padded to multiples of 8, the layout
+    the CUDA kernel reads (every weight row a whole number of 16-byte
+    chunks in either weight type); ``packed`` itself when no width needs
+    it.  Padding is exact: a padded gate channel has zero weights and zero
+    lc, so it gates tanh(0) * sigmoid(0) = 0; a padded residual row stays
+    0; a padded skip column gives relu(0) = 0 into zero post rows.  The lc
+    weights are left as they are: the kernel takes the caller's projection
+    and stages it into the padded layout."""
+    L, two_d, two_r = packed["w_tap"].shape
+    D, R, S = two_d // 2, two_r // 2, packed["w_skip"].shape[1]
+    Rp, Dp, Sp = _pad(R), _pad(D), _pad(S)
+    if (Rp, Dp, Sp) == (R, D, S):
+        return packed
+
+    def pad(key, shape, view=None):
+        x = packed[key] if view is None else packed[key].view(view)
+        out = x.new_zeros(shape)
+        out[tuple(slice(0, n) for n in x.shape)] = x
+        return out
+
+    C = packed["b2"].shape[0]
+    out = dict(packed)
+    out["w_tap"] = pad("w_tap", (L, Dp, 2, 2, Rp),
+                       (L, D, 2, 2, R)).view(L, 2 * Dp, 2 * Rp)
+    out["w_res_t"] = pad("w_res_t", (L, Rp, Dp))
+    out["b_res"] = pad("b_res", (L, Rp))
+    out["w_skip"] = pad("w_skip", (L, Dp, Sp), (L, D, S)).view(L * Dp, Sp)
+    out["skip_bias"] = pad("skip_bias", (Sp,))
+    out["post1"] = pad("post1", (Sp, Sp))
+    out["b1"] = pad("b1", (Sp,))
+    out["post2_t"] = pad("post2_t", (C, Sp))
+    if "front_t" in packed:
+        out["front_t"] = pad("front_t", (Rp, packed["front_t"].shape[1]))
+    else:
+        W, Q, _ = packed["front_oh"].shape
+        out["front_oh"] = pad("front_oh", (W, Q, Rp))
+    return out
 
 
 _PACKED_ORDER = ("w_tap", "w_res_t", "b_res", "front", "w_skip",
@@ -288,7 +385,7 @@ def _launcher():
     """The kernel's C entry point, built and bound on first use."""
     fn = load_library("wavenet_gen").wavenet_gen_launch
     fn.argtypes = ([ctypes.c_void_p] * 16
-                   + [ctypes.c_uint64, ctypes.c_int64] + [ctypes.c_int] * 10
+                   + [ctypes.c_uint64, ctypes.c_int64] + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -318,9 +415,10 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     ``lc_proj [B, T, L*2D]``.
 
     On a CUDA tensor this launches ``csrc/wavenet_gen.cu`` (one block per
-    stream) and counts the launch in ``wavenet_generate.launches`` and, by
-    ``kernel_variant``, in ``wavenet_generate.variant_launches``; on a CPU
-    tensor it runs ``generate_plain``.  Stochastic mode takes its noise from
+    stream, on ``kernel_layout(packed)``) and counts the launch in
+    ``wavenet_generate.launches`` and, by ``kernel_variant``, in
+    ``wavenet_generate.variant_launches``; widths the kernel does not take
+    raise ``ValueError``.  On a CPU tensor it runs ``generate_plain``.  Stochastic mode takes its noise from
     ``noise`` if given, else from Philox seeded by ``generator``.
     ``temperature`` scales the softmax head's scores; the MoL head takes
     only 1.0."""
@@ -343,31 +441,31 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
 
     B, T, LD2 = lc_proj.shape
     L, two_d, two_r = packed["w_tap"].shape
+    R, D = two_r // 2, two_d // 2
     S = packed["w_skip"].shape[1]
     C = packed["b2"].shape[0]
     wdt = packed["w_tap"].dtype
+    if wdt not in WEIGHT_DTYPES:
+        raise TypeError(f"weights have dtype {wdt}, expected one of "
+                        f"{WEIGHT_DTYPES}")
     if quantized:
-        front = packed["front_oh"]
-        W = front.shape[0]
-        front_shape, n_noise = (W, C, two_r // 2), C
+        W = packed["front_oh"].shape[0]
+        front_shape, n_noise = (W, C, _pad(R)), C
     else:
-        front = packed["front_t"]
-        W = front.shape[1]
-        front_shape, n_noise = (two_r // 2, W), C // 3 + 1
-    error = _limits_error(two_r // 2, two_d // 2, W, S, C, quantized)
+        W = packed["front_t"].shape[1]
+        front_shape, n_noise = (_pad(R), W), C // 3 + 1
+    error = _limits_error(L, R, D, W, S, C, quantized, wdt)
     if error is not None:
         raise ValueError(error)
     if LD2 != L * two_d:
         raise ValueError(f"lc_proj {tuple(lc_proj.shape)} does not match "
                          f"L={L} layers of 2D={two_d}")
-    if wdt not in WEIGHT_DTYPES:
-        raise TypeError(f"weights have dtype {wdt}, expected one of "
-                        f"{WEIGHT_DTYPES}")
     if not 0 <= prime_len <= T:
         raise ValueError(f"prime_len={prime_len} outside [0, {T}]")
     f32 = torch.float32
     _check("lc_proj", lc_proj, f32, dev)
-    args = dict(packed, front=front)
+    padded = kernel_layout(packed)
+    args = dict(padded, front=padded["front_oh" if quantized else "front_t"])
     for k in _PACKED_ORDER:
         _check(k, args[k], wdt if k in WEIGHTS + ("front",) else f32, dev,
                front_shape if k == "front" else None)
@@ -378,7 +476,7 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
         _check("noise", noise, f32, dev, (T, B, n_noise))
 
     dil = packed["dilations"]
-    ring_stride = int(dil.sum().item()) * (two_r // 2)
+    ring_stride = int(dil.sum().item()) * _pad(R)
     ring = torch.zeros(B, ring_stride, dtype=f32, device=dev)
     out = torch.empty(B, T, dtype=f32, device=dev)
     seed = 0
@@ -389,9 +487,10 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     rc = _launcher()(
         ptr(lc_proj), *(args[k].data_ptr() for k in _PACKED_ORDER),
         dil.data_ptr(), ptr(primed), ptr(noise), ring.data_ptr(),
-        out.data_ptr(), seed, ring_stride, B, T, L, W, S, C, int(prime_len),
-        int(deterministic), int(quantized), int(wdt == torch.bfloat16),
-        float(temperature), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), seed, ring_stride, B, T, L, R, D, W, S, C,
+        int(prime_len), int(deterministic), int(quantized),
+        int(wdt == torch.bfloat16), float(temperature),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wavenet_gen kernel launch failed: CUDA error {rc}")
     wavenet_generate.launches += 1

@@ -76,9 +76,11 @@ def encode_seed_audio(cfg: Config, wav: np.ndarray, batch: int
 class WaveNetGenerator:
     """Holds the config, the converted parameters on ``device``, the packed
     kernel layout (matrices in ``weight_dtype``: by default bf16 on a GPU,
-    f32 on the CPU) and the upsampler.  On a GPU, widths the CUDA kernel
-    does not take (``kernel_limits_error``) raise ``ValueError`` here,
-    before any weight moves to the card."""
+    f32 on the CPU) and the upsampler.  On a GPU the CUDA kernel serves any
+    width whose layout fits a block's shared memory; a config it does not
+    take (``kernel_limits_error`` with this weight type, e.g. R = D = 128
+    at 50 layers) raises ``ValueError`` here, before any weight moves to
+    the card."""
 
     step: Optional[int] = None      # the checkpoint's step, when loaded
 
@@ -87,11 +89,11 @@ class WaveNetGenerator:
                  weight_dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.weight_dtype = resolve_weight_dtype(self.device, weight_dtype)
         if self.device.type == "cuda":
-            error = kernel_limits_error(cfg.wavenet)
+            error = kernel_limits_error(cfg.wavenet, self.weight_dtype)
             if error is not None:
                 raise ValueError(error)
-        self.weight_dtype = resolve_weight_dtype(self.device, weight_dtype)
         # Speaker rows are picked on the host, with numpy's indexing (a
         # negative id wraps, an id out of range raises IndexError), as the
         # JAX generator picks them: an index out of range on the card would

@@ -2,8 +2,8 @@
 card (tests marked ``cuda``; they skip without a GPU), the Tacotron decode
 and a Tacotron training step on the card against the same on the CPU
 (also with each attention mechanism and simple speakers), WaveNet's
-tensor-parallel step on two ranks sharing the card, and the twin at the
-kernel's own widths (R = D = 32) against the JAX scan sampler where JAX is
+tensor-parallel step on two ranks sharing the card, and the twin at
+wn_moon's widths (R = D = 32) against the JAX scan sampler where JAX is
 installed.
 
 The card's machine has no JAX, and tests/conftest.py imports it, so there
@@ -28,8 +28,9 @@ from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
 from tacotron_wavenet_vocoder_korean_tpu_torch.synth.synthesizer import (
     Synthesizer)
 
-# A stack the CUDA kernel takes (R = D = 32, W = 32), cut to 6 layers and
-# S = 64; and the same stack with the softmax head (W = 2, Q = 256).
+# wn_moon's widths (R = D = 32, W = 32), cut to 6 layers and S = 64; and
+# the same stack with the softmax head (W = 2, Q = 256).  Other widths:
+# tests/test_torch_widths.py.
 CARD = WaveNetConfig(dilations=(1, 2, 4, 1, 2, 4), skip_channels=64,
                      upsample_factor=(2, 5))
 CARD_Q = dataclasses.replace(CARD, input_type="mulaw-quantize",
@@ -172,18 +173,19 @@ def test_cuda_softmax_philox_is_seeded_and_in_range():
 
 @pytest.mark.cuda
 def test_cuda_generator_refuses_kernel_widths_before_moving_weights():
-    """R = D = 8 on the card: ValueError naming the limit at construction,
-    with nothing allocated on the card."""
+    """R = D = 128 at wn_moon's 50 layers on the card, whose layout exceeds
+    a block's shared memory even with one weight slot: ValueError naming
+    the bytes at construction, in both weight types, with nothing
+    allocated on the card."""
     dev = _cuda()
-    narrow = WaveNetConfig(dilations=(1, 2), residual_channels=8,
-                           dilation_channels=8, skip_channels=16,
-                           upsample_factor=(2, 5))
-    params = convert.seeded_params(narrow, 0)
+    wide = WaveNetConfig(residual_channels=128, dilation_channels=128)
+    params = convert.seeded_params(wide, 0)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
-    with pytest.raises(ValueError, match="R = D = 32"):
-        WaveNetGenerator(Config(audio=AudioConfig(hop_size=10),
-                                wavenet=narrow), params, device="cuda")
+    for weight_dtype in G.WEIGHT_DTYPES:
+        with pytest.raises(ValueError, match="232,448 bytes"):
+            WaveNetGenerator(Config(wavenet=wide), params, device="cuda",
+                             weight_dtype=weight_dtype)
     assert torch.cuda.memory_allocated(dev) == before
 
 

@@ -195,29 +195,40 @@ def test_speaker_id_out_of_range_raises_index_error_as_in_jax():
 
 
 @pytest.mark.parametrize("case", ["tiny", "wn_moon", "wn_moon_quantized",
-                                  "front", "skip", "mol", "classes"])
+                                  "front", "skip", "mol", "classes",
+                                  "ceiling", "skip_limit", "filter_width"])
 def test_kernel_limits_error(case):
-    """The CUDA kernel's width limits, in one function: R = D = 8 (the test
-    widths) is refused, the committed wn_moon config (MoL head, and switched
-    to the 256-way softmax head) is accepted, and each other limit names
-    itself."""
+    """The CUDA kernel's limits, in one function: R = D = 8 (the test
+    widths), the committed wn_moon config (MoL head, and switched to the
+    256-way softmax head), 33 front taps, S = 516, 33 mixture components and
+    512 classes are accepted; R = D = 128 at wn_moon's 50 layers is refused
+    for its shared memory (in both weight types), and the two limits that
+    remain name themselves: S <= 4096 and two taps per dilated layer."""
     moon = load_config(WN_MOON).wavenet
     quantized = dataclasses.replace(
         moon, input_type="mulaw-quantize", scalar_input=False,
         out_channels=moon.quantization_channels)
     cfg, refused = {
-        "tiny": (port_cfg(TINY), "R = D = 32"),
+        "tiny": (port_cfg(TINY), None),
         "wn_moon": (moon, None),
         "wn_moon_quantized": (quantized, None),
-        "front": (dataclasses.replace(moon, initial_filter_width=33),
-                  "32 front taps"),
-        "skip": (dataclasses.replace(moon, skip_channels=516), "S <= 4096"),
-        "mol": (dataclasses.replace(moon, out_channels=99), "MoL head"),
-        "classes": (dataclasses.replace(quantized, quantization_channels=512),
-                    "256 classes"),
+        "front": (dataclasses.replace(moon, initial_filter_width=33), None),
+        "skip": (dataclasses.replace(moon, skip_channels=516), None),
+        "mol": (dataclasses.replace(moon, out_channels=99), None),
+        "classes": (dataclasses.replace(quantized, quantization_channels=512,
+                                        out_channels=512), None),
+        "ceiling": (dataclasses.replace(moon, residual_channels=128,
+                                        dilation_channels=128),
+                    "bytes of shared memory"),
+        "skip_limit": (dataclasses.replace(moon, dilations=(1, 2),
+                                           skip_channels=4104),
+                       "4096 skip channels"),
+        "filter_width": (dataclasses.replace(quantized, filter_width=3),
+                         "filter_width 2"),
     }[case]
-    error = kernel_limits_error(cfg)
-    if refused is None:
-        assert error is None
-    else:
-        assert error is not None and refused in error
+    for weight_dtype in (torch.bfloat16, torch.float32):
+        error = kernel_limits_error(cfg, weight_dtype)
+        if refused is None:
+            assert error is None
+        else:
+            assert error is not None and refused in error
