@@ -3,9 +3,11 @@
 hold each of its four variants (mixture-of-logistics or 256-way softmax
 head, f32 or bf16 weights) against its plain twin at full width and at
 other widths (the ``widths`` phases: twice wn_moon's residual width,
-timed, and served by ``WaveNetGenerator``; R != D; TINY's widths and
+timed, and served by ``WaveNetGenerator``; four times, past one block's
+shared memory, on the cluster instance (each stream split over 4
+blocks), timed and served in both weight types; R != D; TINY's widths and
 widths off the 8-channel grid; 40 front taps and 40 components; 300
-classes; a config over the shared-memory ceiling refused), drive the
+classes; a config over the 8-block ceiling refused), drive the
 vocoder serving path (mel -> wav) through ``WaveNetGenerator``, check that
 an out-of-range speaker id leaves the card working, drive text -> mel
 (``Synthesizer``, Tacotron at the ``both_r2`` width) and text -> wav (its
@@ -89,12 +91,14 @@ are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
 ``data``, a ``taco_train``, an ``attention`` and a ``mesh`` JSON line carry
 those phases' numbers, an ``eval`` line the evaluation commands' results
 and walls, and the ``kernels`` line, per variant, the widths held with
-their errors and the 2x-width times; the last line is ``{"ok": true,
-"device": {...}}``.
+their errors and the 2x-width times, and the four cluster variants at 4x
+(blocks per stream, slots, bytes per block, launches of their serving
+path, error, time); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -179,10 +183,11 @@ SPAN = 128
 # over WIDTH_BF16_T teacher-forced steps of WIDTH_BF16_B streams (enough
 # component flips on both sides for compare_bf16's ratio of flip shares;
 # the twin's time goes with the steps, not the streams); the 2x-width variants
-# timed over WIDTH_TIME_T steps; the generator on WIDTH_FRAMES frames of
-# the first committed mel.
+# timed over WIDTH_TIME_T steps, the cluster instance at 4x (R = D = 128)
+# over CLUSTER_TIME_T; the generator on WIDTH_FRAMES frames of the first
+# committed mel.
 WIDTH_T, WIDTH_FREE, WIDTH_BF16_B, WIDTH_BF16_T = 128, 64, 8, 256
-WIDTH_TIME_T, WIDTH_FRAMES = 4096, 20
+WIDTH_TIME_T, CLUSTER_TIME_T, WIDTH_FRAMES = 4096, 2048, 20
 # Tacotron (text -> mel): four requests, two per speaker, with digits and
 # Latin letters, decoded in one batch over the served max_iters.
 TEXTS = ["존경하는 국민 여러분, 오늘은 2026년 10월 17일입니다.",
@@ -3366,6 +3371,7 @@ def width_configs(w) -> dict:
     rep = dataclasses.replace
     softmax = dict(input_type="mulaw-quantize", scalar_input=False)
     twice = rep(w, residual_channels=64, dilation_channels=64)
+    wide = rep(w, residual_channels=128, dilation_channels=128)
     tiny = rep(w, dilations=(1, 2, 4, 1, 2, 4), residual_channels=8,
                dilation_channels=8, skip_channels=16, out_channels=12,
                initial_filter_width=8)
@@ -3373,6 +3379,9 @@ def width_configs(w) -> dict:
         "twice": twice,
         "twice_softmax": rep(twice, out_channels=w.quantization_channels,
                              **softmax),
+        "wide": wide,
+        "wide_softmax": rep(wide, out_channels=w.quantization_channels,
+                            **softmax),
         "r64_d32": rep(w, dilations=w.dilations[:10], residual_channels=64),
         "r32_d64": rep(w, dilations=w.dilations[:10], dilation_channels=64),
         "tiny": tiny,
@@ -3391,10 +3400,14 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
     weights and the committed mels through each width's own upsampler and
     lc projection, primed as the full-width phases prime: 2x wn_moon's
     residual width (R = D = 64, its 50 layers, S = 512, MoL of 10 and the
-    256-way softmax head; f32 takes one weight slot), R != D at 10 layers,
-    TINY's widths, widths off the 8-channel grid (padded by the wrapper),
-    40 front taps with 40 components, a 300-way softmax head.  Each: the
-    library's shared-memory size equal to ``kernel_smem``'s; f32 kernel vs
+    256-way softmax head; f32 takes one weight slot), 4x (R = D = 128, the
+    same stack and heads: over one block's shared memory, the cluster
+    instance, 4 blocks per stream), R != D at 10
+    layers, TINY's widths, widths off the 8-channel grid (padded by the
+    wrapper), 40 front taps with 40 components, a 300-way softmax head.
+    Each: the library's shared-memory size equal to ``kernel_smem``'s and
+    its plan (blocks per stream, slots, bytes) to ``kernel_plan``'s; f32
+    kernel vs
     twin teacher-forced (WIDTH_T steps) and free-running (WIDTH_FREE);
     bf16 kernel vs twin teacher-forced over WIDTH_BF16_T steps within
     compare_bf16's bounds, its early steps held, as the trained phase holds
@@ -3404,9 +3417,13 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
     twin and the f32 kernel part by flips in the first steps too); at 2x
     the four variants timed at B
     = TIME_B over WIDTH_TIME_T steps, and one ``WaveNetGenerator`` request
-    per head.  A config over the shared-memory ceiling is refused at
-    construction with nothing allocated.  Returns, per variant, the widths
-    held and the 2x numbers."""
+    per head; at 4x the four cluster variants timed at B = TIME_B over
+    CLUSTER_TIME_T steps (the bf16 twin's time too), and one request per
+    head and weight type, the launch counts set to 0 before each and read
+    after (the cluster instance's own serving path).  A config over the
+    8-block ceiling (R = D = 256) is refused at construction with nothing
+    allocated.  Returns, per variant, the widths held and the 2x and 4x
+    numbers."""
     from tacotron_wavenet_vocoder_korean_tpu_torch.convert import (
         seeded_params)
     from tacotron_wavenet_vocoder_korean_tpu_torch.dsp.mulaw import (
@@ -3417,12 +3434,20 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
         load_library)
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
         WEIGHT_DTYPES, generate_bytes, generate_flops, generate_plain,
-        kernel_smem, kernel_variant, pack_params, precompute_lc_proj,
-        wavenet_generate)
+        kernel_plan, kernel_smem, kernel_variant, pack_params,
+        precompute_lc_proj, wavenet_generate)
     from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
         WaveNetGenerator)
     w, hop, sr = cfg.wavenet, cfg.audio.hop_size, cfg.audio.sample_rate
     lib = load_library("wavenet_gen")
+    lib.wavenet_gen_plan.restype = ctypes.c_int
+
+    def c_plan(*args):
+        """The library's (blocks, slots, bytes per block)."""
+        k, n = ctypes.c_int(), ctypes.c_int()
+        nbytes = lib.wavenet_gen_plan(*args, ctypes.byref(k), ctypes.byref(n))
+        return k.value, n.value, nbytes
+
     out = {}                 # variant -> list of widths held
 
     def held(v, entry):
@@ -3459,10 +3484,16 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
                 raise AssertionError(f"{name}: the library's shared memory "
                                      f"{c_side} != kernel_smem's "
                                      f"{kernel_smem(*dims, wdt)}")
-        slots = {str(wdt)[6:]: kernel_smem(*dims, wdt)[1]
-                 for wdt in WEIGHT_DTYPES}
-        with phase(f"widths {name}: {shape}, weight slots {slots}"), \
-                torch.no_grad():
+            if c_plan(*dims, bf) != kernel_plan(*dims, wdt):
+                raise AssertionError(f"{name}: the library's plan "
+                                     f"{c_plan(*dims, bf)} != kernel_plan's "
+                                     f"{kernel_plan(*dims, wdt)}")
+        plans = {wdt: kernel_plan(*dims, wdt) for wdt in WEIGHT_DTYPES}
+        slots = {str(wdt)[6:]: plans[wdt][1] for wdt in WEIGHT_DTYPES}
+        blocks = {str(wdt)[6:]: plans[wdt][0] for wdt in WEIGHT_DTYPES}
+        cluster = name.startswith("wide")
+        with phase(f"widths {name}: {shape}, weight slots {slots}, blocks "
+                   f"per stream {blocks}"), torch.no_grad():
             params = seeded_params(c, seed=0, device=dev)
             f32, b16 = (pack_params(c, params, wdt) for wdt in WEIGHT_DTYPES)
             v32, v16 = kernel_variant(f32), kernel_variant(b16)
@@ -3483,8 +3514,9 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
             free = proj[:B, :WIDTH_FREE].contiguous()
             kf = wavenet_generate(f32, free, deterministic=True)
             pf = generate_plain(f32, free, deterministic=True)
-            e32 = dict(entry, slots=slots["float32"],
-                       smem_bytes=kernel_smem(*dims, torch.float32)[0])
+            e32 = dict(entry, blocks=blocks["float32"],
+                       slots=slots["float32"],
+                       smem_bytes=plans[torch.float32][2])
             if c.scalar_input:
                 err = compare(f"f32 teacher-forced {WIDTH_T}", k32, res["p"])
                 err_free = compare(f"f32 free-running {WIDTH_FREE}", kf, pf,
@@ -3494,49 +3526,60 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
                 held(v32, dict(e32, max_abs_err=err,
                                max_abs_err_free=err_free))
             else:
-                _, agree = compare_classes(f"f32 teacher-forced {WIDTH_T}",
-                                           k32, res["p"], CLASS_AGREE_F32, C)
+                err, agree = compare_classes(
+                    f"f32 teacher-forced {WIDTH_T}", k32, res["p"],
+                    CLASS_AGREE_F32, C)
                 _, agree_free = compare_classes(
                     f"f32 free-running {WIDTH_FREE}", kf, pf,
                     CLASS_AGREE_F32, C)
                 held(v32, dict(e32, class_agreement=agree,
-                               class_agreement_free=agree_free))
+                               class_agreement_free=agree_free,
+                               **({"max_abs_err": err} if cluster else {})))
             # bf16: teacher-forced, against the twin and the f32 kernel.
             kw = dict(deterministic=True, primed=primed,
                       prime_len=WIDTH_BF16_T)
             k32 = wavenet_generate(f32, proj, **kw)
             k16 = wavenet_generate(b16, proj, **kw)
-            t16 = generate_plain(b16, proj, **kw)
+            res16 = {}
+            plain16_ms = cuda_ms(lambda: res16.update(
+                p=generate_plain(b16, proj, **kw)))
+            t16 = res16.pop("p")
             early_noise = early_max((t16 - k32).abs(), skip_flips=True)
             early_tol = max(BF16_EARLY_TOL, BF16_RATIO * early_noise)
             err16, agree16 = compare_bf16(
                 f"bf16 teacher-forced {WIDTH_BF16_T}", k16, t16, k32,
                 classes=not c.scalar_input, early_tol=early_tol,
                 early_skip_flips=True)
-            e16 = dict(entry, slots=slots["bfloat16"],
-                       smem_bytes=kernel_smem(*dims, torch.bfloat16)[0])
+            e16 = dict(entry, blocks=blocks["bfloat16"],
+                       slots=slots["bfloat16"],
+                       smem_bytes=plans[torch.bfloat16][2])
+            if cluster:
+                e16.update(plain_ms=plain16_ms, plain_steps=WIDTH_BF16_T,
+                           plain_batch=WIDTH_BF16_B)
             held(v16, dict(e16, **({"max_abs_err": err16,
                                     "early_tol": early_tol}
                                    if agree16 is None
-                                   else {"class_agreement": agree16})))
+                                   else {"class_agreement": agree16,
+                                         "max_abs_err": err16})))
             del proj, primed, span, free, k32, k16, t16, res
-            if not name.startswith("twice"):
+            if not name.startswith(("twice", "wide")):
                 continue
             temp = 1.0 if c.scalar_input else 0.7
+            steps = CLUSTER_TIME_T if cluster else WIDTH_TIME_T
             for v, pk in ((v32, f32), (v16, b16)):
-                p_t, _ = inputs(c, params, pk, B, WIDTH_TIME_T, 32)
+                p_t, _ = inputs(c, params, pk, B, steps, 32)
                 gen_t = torch.Generator(dev).manual_seed(33)
                 wavenet_generate(pk, p_t[:, :64].contiguous(),
                                  generator=gen_t, temperature=temp)
                 ms = cuda_ms(lambda: wavenet_generate(
                     pk, p_t, generator=gen_t, temperature=temp))
-                flops = generate_flops(pk, B, WIDTH_TIME_T)
-                nbytes = generate_bytes(pk, B, WIDTH_TIME_T)
+                flops = generate_flops(pk, B, steps)
+                nbytes = generate_bytes(pk, B, steps)
                 t_ops = flops / PEAK_FLOPS_S[pk["w_tap"].dtype] * 1e3
                 t_bytes = nbytes / HBM_BYTES_S * 1e3
                 out[v][-1].update(
-                    us_per_step=ms / WIDTH_TIME_T * 1e3, ms=ms,
-                    timing_batch=B, timing_steps=WIDTH_TIME_T,
+                    us_per_step=ms / steps * 1e3, ms=ms,
+                    timing_batch=B, timing_steps=steps,
                     bound_ms=max(t_ops, t_bytes),
                     bound_by="operations" if t_ops >= t_bytes else "bytes")
                 span = ""
@@ -3546,48 +3589,58 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
                                       plain_steps=WIDTH_T)
                     span = (f"; {WIDTH_T} steps: kernel {span_ms:.2f} ms, "
                             f"plain twin {plain_ms:.1f} ms")
-                log(f"  {v} B={B} T={WIDTH_TIME_T}: {ms:.1f} ms "
-                    f"({ms / WIDTH_TIME_T * 1e3:.1f} us per step); bound "
+                log(f"  {v} B={B} T={steps}: {ms:.1f} ms "
+                    f"({ms / steps * 1e3:.1f} us per step); bound "
                     f"{max(t_ops, t_bytes):.3f} ms ({flops:.3e} FLOP, "
                     f"{nbytes:.3e} B){span} [{smi}]")
                 del p_t
-            gen = WaveNetGenerator(dataclasses.replace(cfg, wavenet=c),
-                                   params, device="cuda")
-            before = wavenet_generate.launches
-            mel = mels[0][:WIDTH_FRAMES]
-            t0 = time.perf_counter()
-            wav = gen.generate(mel, seed=5, temperature=temp)
-            dt = time.perf_counter() - t0
-            launches = wavenet_generate.launches - before
-            if launches != 1:
-                raise AssertionError(f"{name}: the generator launched "
-                                     f"{launches} times")
-            if wav.shape != (WIDTH_FRAMES * hop,) or not (
-                    np.isfinite(wav).all() and np.abs(wav).max() <= 1):
-                raise AssertionError(f"{name}: generator wav not finite in "
-                                     "[-1, 1]")
-            out[kernel_variant(gen.packed)][-1].update(
-                generator_launches=launches, generator_s=dt)
-            log(f"  WaveNetGenerator ({gen.weight_dtype}): {mel.shape[0]} "
-                f"frames -> {wav.shape[0]} samples in {dt:.3f}s, one launch,"
-                f" std {wav.std():.4f}")
-            del gen, params, f32, b16
+            # One request per head (and, for the cluster instance, per
+            # weight type), its launches counted from 0.
+            for wdt in (WEIGHT_DTYPES if cluster else (None,)):
+                gen = WaveNetGenerator(dataclasses.replace(cfg, wavenet=c),
+                                       params, device="cuda",
+                                       weight_dtype=wdt)
+                v = kernel_variant(gen.packed)
+                wavenet_generate.launches = 0
+                wavenet_generate.variant_launches.clear()
+                mel = mels[0][:WIDTH_FRAMES]
+                t0 = time.perf_counter()
+                wav = gen.generate(mel, seed=5, temperature=temp)
+                dt = time.perf_counter() - t0
+                launches = wavenet_generate.launches
+                if launches != 1 or wavenet_generate.variant_launches[v] != 1:
+                    raise AssertionError(
+                        f"{name}: the generator launched {launches} times "
+                        f"({dict(wavenet_generate.variant_launches)})")
+                if cluster and not v.endswith("-cluster"):
+                    raise AssertionError(f"{name}: served by {v}")
+                if wav.shape != (WIDTH_FRAMES * hop,) or not (
+                        np.isfinite(wav).all() and np.abs(wav).max() <= 1):
+                    raise AssertionError(f"{name}: generator wav not finite "
+                                         "in [-1, 1]")
+                out[v][-1].update(generator_launches=launches,
+                                  generator_s=dt)
+                log(f"  WaveNetGenerator ({gen.weight_dtype}, {v}): "
+                    f"{mel.shape[0]} frames -> {wav.shape[0]} samples in "
+                    f"{dt:.3f}s, one launch, std {wav.std():.4f}")
+                del gen
+            del params, f32, b16
 
-    with phase("widths: over the shared-memory ceiling, refused at "
-               "construction"):
-        wide = dataclasses.replace(w, residual_channels=128,
-                                   dilation_channels=128)
-        params = seeded_params(wide, seed=0)
+    with phase("widths: over the 8-block cluster's shared-memory ceiling, "
+               "refused at construction"):
+        over = dataclasses.replace(w, residual_channels=256,
+                                   dilation_channels=256)
+        params = seeded_params(over, seed=0)
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(dev)
         for wdt in WEIGHT_DTYPES:
             try:
-                WaveNetGenerator(dataclasses.replace(cfg, wavenet=wide),
+                WaveNetGenerator(dataclasses.replace(cfg, wavenet=over),
                                  params, device="cuda", weight_dtype=wdt)
             except ValueError as e:
-                log(f"  R = D = 128, L = 50, {wdt}: ValueError ({e})")
+                log(f"  R = D = 256, L = 50, {wdt}: ValueError ({e})")
             else:
-                raise AssertionError("R = D = 128 was not refused")
+                raise AssertionError("R = D = 256 was not refused")
         if torch.cuda.memory_allocated(dev) != before:
             raise AssertionError("the refused generator allocated memory")
     return out
@@ -4018,6 +4071,35 @@ def main() -> int:
             entry["launches_trained"] = sum(
                 x.get(v, 0) for x in trained_launches.values())
         kernels.append(entry)
+    # The cluster instance (4x wn_moon's residual width): its launches are
+    # the serving requests' of the widths phases, counted from 0 there.
+    for v, held in widths.items():
+        if not v.endswith("-cluster"):
+            continue
+        (c,) = held
+        if c.get("generator_launches", 0) < 1:
+            raise AssertionError(f"the serving path did not launch {v}")
+        kernels.append({
+            "name": f"wavenet_generate[{v}]",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/wavenet_gen.cu",
+            "replaces": TPU_KERNEL,
+            "launches": c["generator_launches"],
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "plain_steps": c["plain_steps"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None,
+            "blocks_per_stream": c["blocks"],
+            "slots": c["slots"],
+            "smem_bytes_per_block": c["smem_bytes"],
+            "timing_batch": c["timing_batch"],
+            "timing_steps": c["timing_steps"],
+            "us_per_step": c["us_per_step"],
+            "widths": held,
+        })
     log(f"total wall time {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"tacotron": taco}))
     print(json.dumps({"trained": trained}))

@@ -1,9 +1,25 @@
 """Where the generation kernel's step goes: time builds of
 ``csrc/wavenet_gen.cu`` with one part removed, and the previous step design
 beside it, f32 and bf16 weights, MoL head, full ``wn_moon`` width with
-seeded weights.
+seeded weights; or, with ``--clusters``, the cluster instance's blocks per
+stream.
 
     python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen
+    python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen --clusters
+
+``--clusters`` times wn_moon's architecture at 4x its residual width (R =
+D = 128, 50 layers: over one block's shared memory) at every cluster size
+whose layout fits (2, 4, 8 blocks per stream; ``kernel_plan``'s is
+marked), and at 2x (R = D = 64,
+which fits one block) at 1, 2 and 4 blocks, MoL head, f32 and bf16,
+through the wrapper's private ``blocks`` override; each size prints its
+weight slots, shared memory per block and us per step.  At 4x it also
+times two builds of the cluster instance with one part removed:
+
+  cluster_no_exchange  no block sends its residual partials to its peers,
+                       and each expects none (it sums what the buffers
+                       hold): the exchange's stores and wait left out
+  cluster_no_skip      the skip product left out
 
 Needs one CUDA card and ``nvcc``.  Each variant is a kernel source with
 text substitutions, built with the package's flags into a temporary
@@ -35,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import os
 import subprocess
 import tempfile
@@ -69,6 +86,11 @@ _SKIP_WAIT = "    mbar_wait(&ready[l0], parity);\n    int l1 = l0 + 1;\n"
 _NSK = "constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);\n"
 _FIXED = ("  if (p.R == FW && p.D == FW && p.Dlc == FW && p.nslot == "
           "nslot<WT>())\n")
+_XSEND = ("          st_async(mapa(xch_a + 4u * (mine + r), q), part, "
+          "mapa(bar, q));\n")
+_XEXPECT = "      mbar_expect_tx(&xbar[l], 4u * (k - 1) * R);\n"
+_CSKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, Dl, S, part, "
+          "skip_i,\n                       lane);\n")
 _SKIP_I = ("  const int skip_i = (warp > 1 && warp % 4 != 0)\n"
            "                         ? (warp - warp / 4 - 2) * 32 + lane : -1;\n")
 
@@ -104,10 +126,17 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "any_width": (SOURCE, [(_FIXED, "  if (false)\n")]),
     "parent": (PARENT, []),
 }
+# The cluster instance's (``--clusters``).
+CLUSTER_VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
+    "cluster_no_exchange": (SOURCE, [
+        (_XSEND, "          ;\n"),
+        (_XEXPECT, "      mbar_expect_tx(&xbar[l], 0u);\n")]),
+    "cluster_no_skip": (SOURCE, [(_CSKIP, "")]),
+}
 
 
 def variant_source(name: str) -> str:
-    path, subs = VARIANTS[name]
+    path, subs = {**VARIANTS, **CLUSTER_VARIANTS}[name]
     src = open(path, encoding="utf-8").read()
     for old, new in subs:
         if src.count(old) != 1:
@@ -117,10 +146,11 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build_all(out_dir: str) -> Dict[str, str]:
-    """Every variant built in parallel (one nvcc each); name -> library."""
+def build_all(out_dir: str, names=tuple(VARIANTS)) -> Dict[str, str]:
+    """Every variant named built in parallel (one nvcc each); name ->
+    library."""
     procs = {}
-    for name in VARIANTS:
+    for name in names:
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w", encoding="utf-8") as f:
             f.write(variant_source(name))
@@ -137,8 +167,9 @@ def build_all(out_dir: str) -> Dict[str, str]:
     return libs
 
 
-# wavenet_gen_launch's R and D, which the previous design does not take
-# (it is laid out for R = D = 32).
+# wavenet_gen_launch's R and D, and its blocks per stream (the argument
+# before the stream), which the previous design does not take (it is laid
+# out for R = D = 32, one block per stream).
 _RD_ARGS = slice(21, 23)
 
 
@@ -149,9 +180,10 @@ def _bind(path: str, takes_widths: bool = True):
     if takes_widths:
         fn.argtypes = args
         return fn
+    del args[-2]
     del args[_RD_ARGS]
     fn.argtypes = args
-    return lambda *a: fn(*a[:_RD_ARGS.start], *a[_RD_ARGS.stop:])
+    return lambda *a: fn(*a[:_RD_ARGS.start], *a[_RD_ARGS.stop:-2], a[-1])
 
 
 def _ms(fn) -> float:
@@ -165,11 +197,71 @@ def _ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def _mels(cfg, B: int, T: int) -> np.ndarray:
+    """The committed mels, repeated to T samples, one per stream."""
+    frames = -(-T // cfg.audio.hop_size)
+    return np.stack([np.resize(np.load(os.path.join(
+        REPO, "samples", "both_r2", f"{b % 4}.mel.npy")), (frames, 80))
+        for b in range(B)]).astype(np.float32)
+
+
+def clusters(cfg, dev, smi: str, B: int, T: int, reps: int,
+             tmp: str) -> None:
+    """The cluster sweep (``--clusters``): 4x wn_moon's residual width at
+    2, 4 and 8 blocks per stream (and the ablated builds), 2x at 1, 2 and
+    4."""
+    builds = {"base": G._launcher()}
+    builds.update({name: _bind(lib) for name, lib in build_all(
+        tmp, tuple(CLUSTER_VARIANTS)).items()})
+    mel = torch.from_numpy(_mels(cfg, B, T)).to(dev)
+    print(f"card: {smi}; B={B} T={T}, MoL head, us per step", flush=True)
+    for name, width in (("4x", 128), ("2x", 64)):
+        c = dataclasses.replace(cfg.wavenet, residual_channels=width,
+                                dilation_channels=width)
+        params = seeded_params(c, 0, dev)
+        with torch.no_grad():
+            lc = Upsampler(c).load_params(params).to(dev)(mel)[:, :T]
+        for dt in G.WEIGHT_DTYPES:
+            pk = G.pack_params(c, params, dt)
+            with torch.no_grad():
+                proj = G.precompute_lc_proj(pk, lc)
+            dims = G.kernel_widths(pk)
+            plan = G.kernel_plan(*dims, dt)
+            sizes = G.CLUSTER_SIZES[1:] if name == "4x" else (1, 2, 4)
+            for k in sizes:
+                nbytes, slots = G._block_smem(*dims, k, dt)
+                if not slots:
+                    print(f"{name} {str(dt)[6:]:8s} k={k}: does not fit "
+                          f"({nbytes:,} B per block with one slot)",
+                          flush=True)
+                    continue
+                for build, fn in builds.items():
+                    if build != "base" and (name != "4x" or k == 1):
+                        continue
+                    G._launcher = lambda fn=fn: fn
+                    gen = torch.Generator(dev).manual_seed(0)
+                    G._generate(pk, proj[:, :64].contiguous(), generator=gen,
+                                blocks=k)                   # warm-up
+                    times = [_ms(lambda: G._generate(
+                        pk, proj, generator=gen, blocks=k))
+                        for _ in range(reps)]
+                    print(f"{name} {str(dt)[6:]:8s} k={k} slots={slots} "
+                          f"smem={nbytes} B"
+                          f"{' (plan)' if k == plan[0] else ''} {build}: "
+                          + " ".join(f"{t / T * 1e3:.1f}" for t in times),
+                          flush=True)
+                G._launcher = lambda fn=builds["base"]: fn
+            del proj
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--steps", type=int, default=8192)
+    p.add_argument("--steps", type=int, default=None,
+                   help="steps per launch (8192; 2048 with --clusters)")
     p.add_argument("--streams", type=int, default=4)
     p.add_argument("--reps", type=int, default=2)
+    p.add_argument("--clusters", action="store_true",
+                   help="time the cluster instance's blocks per stream")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gen: no CUDA device")
@@ -178,12 +270,18 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     cfg = load_config(os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz"))
+    if args.clusters:
+        kernel_launcher = G._launcher
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                clusters(cfg, dev, smi, args.streams, args.steps or 2048,
+                         args.reps, tmp)
+        finally:
+            G._launcher = kernel_launcher
+        return
     w = cfg.wavenet
-    B, T = args.streams, args.steps
-    frames = -(-T // cfg.audio.hop_size)
-    mel = np.stack([np.resize(np.load(os.path.join(
-        REPO, "samples", "both_r2", f"{b % 4}.mel.npy")), (frames, 80))
-        for b in range(B)]).astype(np.float32)
+    B, T = args.streams, args.steps or 8192
+    mel = _mels(cfg, B, T)
     params = seeded_params(w, 0, dev)
     with torch.no_grad():
         lc = Upsampler(w).load_params(params).to(dev)(

@@ -26,17 +26,43 @@
 // histories and h stay f32.
 //
 // Widths.  Any L, R, D, S, front taps W, MoL components and softmax classes
-// whose layout fits a block's shared memory.  The kernel works on R, D and
-// S padded to multiples of 8, so every weight row is a whole number of
+// whose layout fits a block's shared memory, or, with the gate channels
+// split, the shared memory of a cluster of up to 8 blocks.  The kernel
+// works on R, D and S padded to multiples of 8 (D to a multiple of 8k when
+// it is split over k blocks), so every weight row is a whole number of
 // 16-byte chunks in either weight type.  The wrapper zero-pads the weights
 // (ops/wavenet_gen.py:kernel_layout), which is exact: a padded gate channel
 // has zero weights and no lc term, so it gates tanh(0) * sigmoid(0) = 0; a
 // padded residual row stays 0; a padded skip column gives relu(0) = 0 into
 // zero post rows.  The lc projection keeps the caller's D, and the kernel
-// stages each row into the padded layout.  Two instances per weight type:
+// stages each row into the padded layout.  Three instances per weight type:
 // R = D = 32 with the full weight ring (wn_moon's widths, the chain's
-// loops unrolled at compile time and h[r] in a register), and any other
-// width, read at run time.
+// loops unrolled at compile time and h[r] in a register), any other width
+// that fits one block, read at run time, and the cluster instance below.
+//
+// Cluster instance (widths over one block's shared memory, e.g. R = D =
+// 128 at 50 layers).  Each stream runs on a thread-block cluster of k = 2,
+// 4 or 8 blocks (plan below, mirrored by ops/wavenet_gen.py:kernel_plan);
+// block c owns gate channels [c D/k, (c+1) D/k).
+// Its producer streams only its slice of each layer's tap rows and
+// residual columns (w_res_t repacked [L, k, R, D/k] by the wrapper) into
+// its own ring; its chain warp computes its D/k gated values and, from
+// them, partial residual sums for all R rows, which it stores into slot c
+// of every block's exchange buffer through distributed shared memory
+// (st.async, each store completing its bytes on that block's layer
+// mbarrier: a release-arrive per peer cost a fence each, and grew the
+// step with k).  Each
+// block then adds b_res and the k partials in the fixed order c = 0..k-1,
+// so all k copies of h stay bit-identical; two exchange buffers, by layer
+// parity, keep layer l + 2's stores off layer l's values (a block sends
+// layer l + 1 only after it has read layer l).  Every block keeps its own
+// copy of the stream's ring histories in global scratch, so no block reads
+// another's global writes.  The skip warps of each block take their D/k
+// rows of each layer (w_skip repacked [k, L D/k, S]); after a cluster
+// barrier block 0 sums the k partial skip vectors through distributed
+// shared memory, runs relu -> post1 -> post2 -> head alone (only it draws
+// noise, from today's Philox subsequences) and stores the sample into
+// every block's shared memory before the next cluster barrier.
 //
 // Design.  One thread block of 16 warps per stream (B <= 8 in practice),
 // persistent: it loops over all T samples itself, because blocks run in no
@@ -66,8 +92,10 @@
 // row, gated outputs, skip/post buffers, logits and partial sums (L(3R +
 // 3D) + 2R + 2S + C + W + 4096 floats: about 55 KB for wn_moon).
 // smem_layout computes it; widths whose layout exceeds the 232,448 bytes a
-// block may use even with one slot are refused (wavenet_gen_smem_bytes
-// reports the bytes, ops/wavenet_gen.py mirrors it).  Activations are
+// block may use even with one slot take the cluster instance, and those
+// that exceed it even split over 8 blocks are refused (wavenet_gen_plan
+// and wavenet_gen_smem_bytes report the bytes, ops/wavenet_gen.py mirrors
+// them).  Activations are
 // rounded to the weight type once, where they are stored.  The ring
 // histories (sum(d)*R f32 per stream, ~655 KB for wn_moon) live in a
 // zeroed global scratch; the weights (~5.4 MB in f32 for wn_moon, half
@@ -85,7 +113,10 @@
 // memory rates are far from the limit.  Later versions would split each
 // stream's weights across a thread-block cluster's shared memory (which
 // also lifts the width ceiling), serve all streams from one weight read,
-// and use warp-level MMA.
+// and use warp-level MMA.  The cluster instance does the first of these
+// for widths past one block; at R = D = 128 each block then streams 1/k
+// of the layer weights, and the chain pays one exchange round trip per
+// layer.
 //
 // Noise: counter-based Philox (curand_kernel.h), seeded by the wrapper from
 // a torch.Generator, one subsequence per (stream, lane) of warp 0; or, for
@@ -109,6 +140,7 @@ constexpr int PRODUCER = 32;  // the thread that issues the weight copies
 constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);
 constexpr int MAX_S = 8 * NT;  // skip channels: the partial sums' buffer
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use (H100)
+constexpr int MAX_CLUSTER = 8;      // blocks per stream (the portable most)
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr float U_MIN = 1e-5f;
 constexpr float U_MAX = 1.0f - 1e-5f;
@@ -124,36 +156,81 @@ __host__ __device__ constexpr int max_slots(int wsize) {
 // The kernel's widths: R, D and S padded to whole 16-byte chunks.
 __host__ __device__ constexpr int pad8(int n) { return (n + 7) & ~7; }
 __host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
+// D padded for a split over k blocks: each block's slice a multiple of 8.
+__host__ __device__ constexpr int pad_split(int n, int k) {
+  return (n + 8 * k - 1) / (8 * k) * (8 * k);
+}
 
 // Byte offsets into the dynamic shared memory: the weight ring, its
 // mbarriers, the f32 buffers, the int tables.  R, D and S are the padded
-// widths, so every f32 buffer starts 16-byte aligned.
+// widths (D is a block's share of the gate channels when the stream is
+// split over a cluster of k > 1 blocks, which adds L exchange mbarriers,
+// the two exchange buffers [2][k][R], the partial skip vector [S] and the
+// sample's slot), so every f32 buffer starts 16-byte aligned.
 struct Smem {
   unsigned bars, f32s, ints, total;
 };
 __host__ __device__ inline Smem smem_layout(int L, int R, int D, int S,
                                             int C, int W, int nslot,
-                                            int wsize) {
+                                            int wsize, int k = 1) {
   Smem m;
   m.bars = (unsigned)(nslot * 5 * R * D * wsize);
-  m.f32s = (m.bars + 8u * (2 * nslot + L) + 15u) & ~15u;
+  m.f32s = (m.bars + 8u * (2 * nslot + L + (k > 1 ? L : 0)) + 15u) & ~15u;
   const unsigned floats = up4(W) + 2 * R + L * R + L * 2 * D + L * D +
-                          2 * S + up4(C) + L * R + 8 * NT;
+                          2 * S + up4(C) + L * R + 8 * NT +
+                          (k > 1 ? 2 * k * R + S + 4 : 0);
   m.ints = m.f32s + 4u * floats;
   m.total = m.ints + 4u * 3 * L;
   return m;
 }
 
-// The most weight slots whose layout fits a block (padded widths), or 0
-// when not even one does.
-inline int fit_slots(int L, int R, int D, int S, int C, int W, int wsize) {
+// The most weight slots whose layout fits a block (padded widths, D a
+// block's share when k > 1), or 0 when not even one does.
+inline int fit_slots(int L, int R, int D, int S, int C, int W, int wsize,
+                     int k = 1) {
   for (int n = max_slots(wsize); n >= 1; --n)
-    if (smem_layout(L, R, D, S, C, W, n, wsize).total <= (unsigned)SMEM_LIMIT)
+    if (smem_layout(L, R, D, S, C, W, n, wsize, k).total <=
+        (unsigned)SMEM_LIMIT)
       return n;
   return 0;
 }
 
+// The plan at the caller's widths: blocks per stream, the weight slots and
+// the shared memory bytes per block.  One block whenever its layout fits;
+// else, of the cluster sizes 2, 4 and 8 whose layout fits, the fewest that
+// leave each chain lane at most one gate channel (D/k <= 32), or the fewest
+// when none does (at R = D = 128 the chain's per-lane work, not the
+// weights' room, sets the step: bf16 ran 340.7 us at 2 blocks against
+// 245.7 at 4 on an H100); 8 blocks with 0 slots (and the one-slot bytes)
+// when none fits.
+inline int plan(int L, int R, int D, int S, int C, int W, int wsize,
+                int* blocks, int* slots) {
+  int best = 0, best_n = 0;
+  unsigned total = 0;
+  for (int k = 1; k <= MAX_CLUSTER; k *= 2) {
+    const int Dl = pad_split(D, k) / k;
+    const int n = fit_slots(L, pad8(R), Dl, pad8(S), C, W, wsize, k);
+    if (n > 0 && (best == 0 || (best > 1 && pad_split(D, best) / best > 32 &&
+                                Dl <= 32))) {
+      best = k;
+      best_n = n;
+      total = smem_layout(L, pad8(R), Dl, pad8(S), C, W, n, wsize, k).total;
+    }
+    if (best == 1) break;
+  }
+  if (best == 0) {
+    best = MAX_CLUSTER;
+    total = smem_layout(L, pad8(R), pad_split(D, best) / best, pad8(S), C, W,
+                        1, wsize, best).total;
+  }
+  *blocks = best;
+  *slots = best_n;
+  return (int)total;
+}
+
 // R, D and S are the padded widths; lc_proj keeps the caller's D (Dlc).
+// With k > 1 blocks per stream, w_res_t is [L, k, R, D/k] and w_skip
+// [k, L*D/k, S].
 struct Params {
   const float* lc_proj;    // [B, T, L*2Dlc] per layer [filter Dlc | gate Dlc]
   const void* w_tap;       // [L, 2D, 2R]    row 2j+f, cols [old tap | cur tap]
@@ -169,13 +246,14 @@ struct Params {
   const int* dil;          // [L]
   const float* primed;     // [T, B] or null (samples, or class ids)
   const float* noise;      // [T, B, nr+1] (MoL) / [T, B, C] (softmax) or null
-  float* ring;             // [B, ring_stride] zeroed
+  float* ring;             // [B, k, ring_stride] zeroed
   float* out;              // [B, T]
   unsigned long long seed;
   long long ring_stride;
   int B, T, L, R, D, Dlc, W, S, C, prime_len, deterministic, quantized;
   int nslot;
   float temperature;
+  int k;                   // blocks per stream (the cluster instance's)
 };
 
 // Weight loads, widened to f32, and the rounding of an activation to the
@@ -255,6 +333,50 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                "::bytes [%0], [%1], %2, [%3];\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
                   "r"(smem_addr(bar)) : "memory");
+}
+
+// Distributed shared memory of a cluster: the shared::cluster address of
+// this block's shared::cta address `a` in the block of rank `rank`, f32
+// stores and loads there, an asynchronous store that completes its 4 bytes
+// on a peer's mbarrier (no fence: the peer's phase completes when all the
+// bytes it expects have landed), an acquire wait (cluster scope) on this
+// block's own mbarrier, and the cluster-wide barrier.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_async(uint32_t a, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+               " [%0], %1, [%2];\n"
+               :: "r"(a), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+                 " p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // One 16-byte chunk of weights in shared memory (4 f32 or 8 bf16) against
@@ -657,6 +779,87 @@ __device__ __forceinline__ void run_chain_any(
   }
 }
 
+// The chain of block `rank` of a k-block cluster: its Dl gated channels
+// (lane owns j = lane + 32m of them), then partial residual sums over
+// those channels for every row r = lane + 32m, stored into slot `rank` of
+// every block's exchange buffer xch[l & 1] [k][R]: its own by a plain
+// store, each peer's by st.async, whose bytes complete on that peer's
+// xbar[l].  Lane 0 arrives once on its own xbar[l], expecting the (k-1) R
+// floats of its peers (phase `parity` at step t; a peer's bytes may land
+// before this arrive, which the transaction count allows).  After its own
+// xbar[l] completes, each block adds the k partials in rank order and b_res
+// to h, bit for bit as its peers do.  The weight slot is freed before the
+// exchange, so the producer's next copy overlaps it.
+template <typename WT>
+__device__ __forceinline__ void run_chain_cluster(
+    const WT* wring, uint64_t* full, uint64_t* empty, uint64_t* ready,
+    uint64_t* xbar, float* xch, unsigned parity, float* h, float* hr,
+    const float* olds, const float* lcs, float* gat, const float* bres,
+    const int* cur, float* ring, int L, int R, int Dl, int nslot, int k,
+    int rank, int lane, int& slot, unsigned& phase) {
+  constexpr int CH = Chunk<WT>::N;
+  const int NK = 2 * R / CH, NKR = Dl / CH;
+  const int TAP = 4 * R * Dl, RES = R * Dl;
+  const uint32_t xch_a = smem_addr(xch), xbar_a = smem_addr(xbar);
+  for (int l = 0; l < L; ++l) {
+    mbar_wait(&full[slot], phase);
+    const WT* wl = wring + slot * (TAP + RES);
+    const float* xo = olds + l * R;
+    for (int j = lane; j < Dl; j += 32) {
+      const WT* wf = wl + (2 * j) * 2 * R;
+      const WT* wg = wf + 2 * R;
+      float af[4] = {0.f, 0.f, 0.f, 0.f}, ag[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = j % NK;
+      for (int i = 0; i < NK; ++i) {
+        const int kk = c * CH;
+        Chunk<WT>::two(wf + kk, wg + kk, kk < R ? xo + kk : hr + (kk - R), af,
+                       ag);
+        if (++c == NK) c = 0;
+      }
+      const float f = sum4(af) + lcs[l * 2 * Dl + j];
+      const float gs = sum4(ag) + lcs[l * 2 * Dl + Dl + j];
+      gat[l * Dl + j] = rnd<WT>(tanhf(f) * (1.f / (1.f + expf(-gs))));
+    }
+    mbar_arrive(&ready[l]);   // every lane, with or without a channel
+    __syncwarp();
+    const WT* wr = wl + TAP;
+    const int mine = ((l & 1) * k + rank) * R;
+    const uint32_t bar = xbar_a + 8u * l;
+    for (int r = lane; r < R; r += 32) {
+      float ar[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = r % NKR;
+      for (int i = 0; i < NKR; ++i) {
+        const int kk = c * CH;
+        Chunk<WT>::one(wr + r * Dl + kk, gat + l * Dl + kk, ar);
+        if (++c == NKR) c = 0;
+      }
+      const float part = sum4(ar);
+      xch[mine + r] = part;
+      for (int q = 0; q < k; ++q)
+        if (q != rank)
+          st_async(mapa(xch_a + 4u * (mine + r), q), part, mapa(bar, q));
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&empty[slot]);
+      mbar_expect_tx(&xbar[l], 4u * (k - 1) * R);
+    }
+    if (++slot == nslot) { slot = 0; phase ^= 1; }
+    mbar_wait_cluster(&xbar[l], parity);
+    const float* xl = xch + (l & 1) * k * R;
+    for (int r = lane; r < R; r += 32) {
+      float s = xl[r];
+      for (int q = 1; q < k; ++q) s += xl[q * R + r];
+      const float hv = h[r];
+      ring[cur[l] + r] = hv;   // this layer's input, at slot t mod d
+      const float hn = hv + (s + bres[l * R + r]);
+      h[r] = hn;
+      hr[r] = rnd<WT>(hn);
+    }
+    __syncwarp();
+  }
+}
+
 // Fill ring slot s with layer l's tap and residual weights (tap and res
 // weights each).
 template <typename WT>
@@ -669,6 +872,19 @@ __device__ __forceinline__ void issue_layer(WT* wring, uint64_t* full,
   bulk_copy(dst, w_tap + (long long)l * tap, tap * sizeof(WT), &full[s]);
   bulk_copy(dst + tap, w_res_t + (long long)l * res, res * sizeof(WT),
             &full[s]);
+}
+
+// Fill ring slot s with one block's spans of a layer: `tap` weights from
+// tap_src, `res` from res_src.
+template <typename WT>
+__device__ __forceinline__ void load_span(WT* wring, uint64_t* full,
+                                           const WT* tap_src,
+                                           const WT* res_src, int s, int tap,
+                                           int res) {
+  WT* dst = wring + s * (tap + res);
+  mbar_expect_tx(&full[s], (tap + res) * sizeof(WT));
+  bulk_copy(dst, tap_src, tap * sizeof(WT), &full[s]);
+  bulk_copy(dst + tap, res_src, res * sizeof(WT), &full[s]);
 }
 
 // The producer's next layer slot: ring slot s of phase ph, layer l.
@@ -872,6 +1088,252 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   }
 }
 
+// This thread's index among the skip threads (every warp but the chain
+// warp, the producer's and the other warps of the chain warp's scheduler),
+// or -1.
+__device__ __forceinline__ int skip_index(int warp, int lane) {
+  return (warp > 1 && warp % 4 != 0) ? (warp - warp / 4 - 2) * 32 + lane
+                                      : -1;
+}
+
+// The cluster instance: block `rank` of stream b's k-block cluster (grid
+// B*k, cluster (k, 1, 1)).  The same step as wavenet_gen_kernel's at run
+// time widths, with this block's Dl = D/k gate channels; two cluster
+// barriers a step: after the skip partials (block 0 then sums them) and
+// after block 0 has stored the sample into every block's `xs`.
+template <typename WT>
+__global__ void __launch_bounds__(NT, 1) wavenet_gen_cluster_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int k = p.k, NSLOT = p.nslot;
+  const int R = p.R, Dl = p.D / k, DL = p.Dlc;
+  const int rank = blockIdx.x % k, b = blockIdx.x / k, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int L = p.L, W = p.W, S = p.S, C = p.C;
+  const int TAP = 4 * R * Dl, RES = R * Dl;
+  // This block's spans: tap rows [2 rank Dl, 2 (rank+1) Dl) of each layer
+  // (layer stride k*TAP), residual columns [L, k, R, Dl] (stride k*RES),
+  // skip rows [k, L*Dl, S].
+  const WT* w_tap = static_cast<const WT*>(p.w_tap) + (long long)rank * TAP;
+  const WT* w_res = static_cast<const WT*>(p.w_res_t) + (long long)rank * RES;
+  const WT* w_skip =
+      static_cast<const WT*>(p.w_skip) + (long long)rank * L * Dl * S;
+  const WT* front = static_cast<const WT*>(p.front);
+  const WT* post1 = static_cast<const WT*>(p.post1);
+  const WT* post2_t = static_cast<const WT*>(p.post2_t);
+
+  const Smem m = smem_layout(L, R, Dl, S, C, W, NSLOT, sizeof(WT), k);
+  WT* wring = reinterpret_cast<WT*>(smem_raw);  // [NSLOT][TAP + RES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + m.bars);
+  uint64_t* empty = full + NSLOT;
+  uint64_t* ready = empty + NSLOT;   // [L] layer l's gated output stored
+  uint64_t* xbar = ready + L;        // [L] layer l's k partials stored
+  float* win = reinterpret_cast<float*>(smem_raw + m.f32s);  // [W]
+  float* h = win + up4(W);           // [R]   f32 layer-0 input
+  float* hr = h + R;                 // [R]   the chain's input, rounded
+  float* olds = hr + R;              // [L*R] history rows h[t-d] (rounded)
+  float* lcs = olds + L * R;         // [L*2Dl] this block's lc row
+  float* gat = lcs + L * 2 * Dl;     // [L*Dl] gated outputs (rounded)
+  float* z = gat + L * Dl;           // [S]
+  float* z1 = z + S;                 // [S]
+  float* logits = z1 + S;            // [C]
+  float* bres = logits + up4(C);     // [L*R] residual biases
+  float* part = bres + L * R;        // [8 * NT] partial sums
+  float* xch = part + 8 * NT;        // [2][k][R] residual partials
+  float* zloc = xch + 2 * k * R;     // [S] this block's skip sums
+  float* xs = zloc + S;              // [1] the step's sample (from block 0)
+  int* dil = reinterpret_cast<int*>(smem_raw + m.ints);  // [L]
+  int* roff = dil + L;               // [L] ring offset of each layer
+  int* cur = roff + L;               // [L] this step's ring row of each layer
+
+  if (tid == 0) {
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    for (int l = 0; l < L; ++l) {
+      mbar_init(&ready[l], 32);
+      mbar_init(&xbar[l], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < W; i += NT) win[i] = p.quantized ? -1.f : 0.f;
+  for (int l = tid; l < L; l += NT) dil[l] = p.dil[l];
+  for (int i = tid; i < L * R; i += NT) bres[i] = p.b_res[i];
+  // Channels past the caller's D take no lc term: their entries stay 0.
+  for (int i = tid; i < L * 2 * Dl; i += NT) lcs[i] = 0.f;
+  __syncthreads();
+  if (tid == 0) {
+    int o = 0;
+    for (int l = 0; l < L; ++l) { roff[l] = o; o += dil[l] * R; }
+  }
+  // Every block's mbarriers are initialised before any peer arrives.
+  cluster_sync();
+  curandStatePhilox4_32_10_t rng;
+  const bool philox = !p.deterministic && p.noise == nullptr;
+  if (philox && warp == 0 && rank == 0)
+    curand_init(p.seed, (unsigned long long)b * 32 + lane, 0, &rng);
+  float* ring = p.ring + ((long long)b * k + rank) * p.ring_stride;
+  const int LDL = L * 2 * DL;
+  const float* lc_b = p.lc_proj + (long long)b * p.T * LDL;
+  const long long n_slots = (long long)p.T * L;
+  const int n_groups = skip_groups<WT>(S);
+  long long g_load = 0;
+  int ps = 0, pl = 0, cs = 0;
+  unsigned pph = 0, cph = 0;
+  const bool producer = tid == PRODUCER;
+  if (producer) {
+    for (; g_load < NSLOT && g_load < n_slots; ++g_load) {
+      load_span(wring, full, w_tap + (long long)pl * k * TAP,
+                 w_res + (long long)pl * k * RES, ps, TAP, RES);
+      advance(ps, pph, pl, NSLOT, L);
+    }
+  }
+  __syncthreads();
+
+  const int r16 = tid >> 4, g16 = tid & 15;
+  const int skip_i = skip_index(warp, lane);
+  const uint32_t zloc_a = smem_addr(zloc), xs_a = smem_addr(xs);
+
+  for (int t = 0; t < p.T; ++t) {
+    if (tid == 0 && t < p.prime_len)
+      win[W - 1] = p.primed[(long long)t * p.B + b];
+    for (int i = tid; i < L * R; i += NT) {
+      const int l = i / R;
+      olds[i] = rnd<WT>(ring[roff[l] + (t % dil[l]) * R + (i % R)]);
+    }
+    for (int l = tid; l < L; l += NT) cur[l] = roff[l] + (t % dil[l]) * R;
+    // This block's gate channels of the lc row: (layer, filter or gate) q,
+    // channel rank*Dl + jl of the caller's DL.
+    const float* lrow = lc_b + (long long)t * LDL;
+    for (int i = tid; i < L * 2 * Dl; i += NT) {
+      const int q = i / Dl, j = rank * Dl + (i - q * Dl);
+      if (j < DL) lcs[i] = lrow[q * DL + j];
+    }
+    __syncthreads();
+
+    if (p.quantized) {
+      for (int r = tid; r < R; r += NT) {
+        float acc = 0.f;
+        for (int w = 0; w < W; ++w) {
+          const int c = (int)win[w];
+          if (c >= 0) acc += ldw(front + ((long long)w * C + c) * R + r);
+        }
+        h[r] = acc;
+        hr[r] = rnd<WT>(acc);
+      }
+    } else {
+      for (int r0 = 0; r0 < R; r0 += NT / 16) {
+        const int r = r0 + r16;
+        float acc = 0.f;
+        if (r < R)
+          for (int w = g16; w < W; w += 16)
+            acc += rnd<WT>(win[w]) * ldw(front + r * W + w);
+        for (int o = 8; o; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+        if (g16 == 0 && r < R) {
+          h[r] = acc;
+          hr[r] = rnd<WT>(acc);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (warp == 0) {
+      run_chain_cluster<WT>(wring, full, empty, ready, xbar, xch, t & 1, h,
+                            hr, olds, lcs, gat, bres, cur, ring, L, R, Dl,
+                            NSLOT, k, rank, lane, cs, cph);
+    } else if (producer) {
+      for (int i = 0; i < L && g_load < n_slots; ++i, ++g_load) {
+        mbar_wait(&empty[ps], pph ^ 1);
+        load_span(wring, full, w_tap + (long long)pl * k * TAP,
+                   w_res + (long long)pl * k * RES, ps, TAP, RES);
+        advance(ps, pph, pl, NSLOT, L);
+      }
+    } else if (skip_i >= 0) {
+      skip_partial<WT>(gat, w_skip, ready, t & 1, L, Dl, S, part, skip_i,
+                       lane);
+    }
+    __syncthreads();
+    for (int s = tid; s < S; s += NT) {
+      float v = 0.f;
+      for (int g = 0; g < n_groups; ++g) v += part[g * S + s];
+      zloc[s] = v;
+    }
+    cluster_sync();   // every block's skip sums are stored
+
+    if (rank == 0) {
+      for (int s = tid; s < S; s += NT) {
+        float v = zloc[s];
+        for (int q = 1; q < k; ++q) v += ld_cluster(mapa(zloc_a + 4u * s, q));
+        z[s] = rnd<WT>(fmaxf(v + p.skip_bias[s], 0.f));
+      }
+      __syncthreads();
+      dense_relu<WT>(z, post1, p.b1, S, S, z1, part, tid);
+      for (int c = warp; c < C; c += NT / 32) {
+        float acc = 0.f;
+        for (int kk = lane; kk < S; kk += 32)
+          acc += z1[kk] * ldw(post2_t + (long long)c * S + kk);
+        acc = warp_sum(acc);
+        if (lane == 0) logits[c] = acc + p.b2[c];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const float x = p.quantized
+                            ? softmax_head(p, logits, t, b, lane, &rng)
+                            : mol_head(p, logits, t, b, lane, &rng);
+        if (lane == 0) {
+          p.out[(long long)b * p.T + t] = x;
+          for (int q = 0; q < k; ++q) st_cluster(mapa(xs_a, q), x);
+        }
+      }
+    }
+    cluster_sync();   // the sample is in every block's xs
+
+    if (warp == 0) {
+      const float x = xs[0];
+      for (int w0 = 0; w0 < W; w0 += 32) {
+        const int w = w0 + lane;
+        const float nxt = (w < W - 1) ? win[w + 1] : x;
+        __syncwarp();
+        if (w < W) win[w] = nxt;
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  // No block leaves while a peer may still touch its shared memory.
+  cluster_sync();
+}
+
+// Launches the cluster instance: grid B*k, clusters of k blocks.  Returns
+// a CUDA error, or -1000 - n when the card holds only n < B such clusters
+// at once (a cluster's blocks must all be resident).
+template <typename WT>
+int launch_cluster(const Params& p, size_t smem, cudaStream_t stream) {
+  void (*kern)(Params) = wavenet_gen_cluster_kernel<WT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.k);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (n < p.B) return -1000 - n;
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename WT, int RF>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -882,10 +1344,19 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// wn_moon's widths with the full ring take the R = D = 32 instance.
+// wn_moon's widths with the full ring take the R = D = 32 instance; a
+// stream split over k > 1 blocks the cluster instance.
 template <typename WT>
 int launch_widths(Params p, cudaStream_t stream) {
   const int wsize = (int)sizeof(WT);
+  if (p.k > 1) {
+    const int Dl = p.D / p.k;
+    p.nslot = fit_slots(p.L, p.R, Dl, p.S, p.C, p.W, wsize, p.k);
+    if (p.nslot < 1) return (int)cudaErrorInvalidValue;
+    return launch_cluster<WT>(
+        p, smem_layout(p.L, p.R, Dl, p.S, p.C, p.W, p.nslot, wsize, p.k).total,
+        stream);
+  }
   p.nslot = fit_slots(p.L, p.R, p.D, p.S, p.C, p.W, wsize);
   if (p.nslot < 1) return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -917,13 +1388,26 @@ extern "C" int wavenet_gen_slots(int L, int R, int D, int S, int C, int W,
   return fit_slots(L, pad8(R), pad8(D), pad8(S), C, W, bf16 ? 2 : 4);
 }
 
+// The plan at the caller's widths (as wavenet_gen_smem_bytes takes them):
+// the fewest blocks per stream, 1, 2, 4 or 8, whose per-block layout fits
+// (*blocks), that layout's weight slots (*slots, 0 when not even 8 blocks
+// with one slot fit), and its shared memory bytes per block (returned).
+extern "C" int wavenet_gen_plan(int L, int R, int D, int S, int C, int W,
+                                int bf16, int* blocks, int* slots) {
+  return plan(L, R, D, S, C, W, bf16 ? 2 : 4, blocks, slots);
+}
+
 // Launches the sampler on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted).  R, D and S are the caller's widths: lc_proj is
-// [B, T, L*2D], every other tensor is in the layout of R, D and S padded
-// to multiples of 8 (ops/wavenet_gen.py:kernel_layout).  `front` is
-// [R, W] for scalar input and [W, C, R] for the softmax head (quantized !=
-// 0); `bf16` selects __nv_bfloat16 weights.  The wrapper checks shapes,
-// types and devices before calling.
+// the launch was accepted), or -1000 - n when the card holds only n < B
+// clusters of `blocks` blocks at once.  R, D and S are the caller's
+// widths: lc_proj is [B, T, L*2D], every other tensor is in the layout of
+// R and S padded to multiples of 8 and D to a multiple of 8 * blocks
+// (ops/wavenet_gen.py:kernel_layout; with blocks > 1 w_res_t and w_skip
+// split per block, cluster_layout).  `front` is [R, W] for scalar input
+// and [W, C, R] for the softmax head (quantized != 0); `bf16` selects
+// __nv_bfloat16 weights; `blocks` (1, 2, 4 or 8) is the blocks per stream,
+// and the ring scratch holds that many copies per stream.  The wrapper
+// checks shapes, types and devices before calling.
 extern "C" int wavenet_gen_launch(
     const float* lc_proj, const void* w_tap, const void* w_res_t,
     const float* b_res, const void* front, const void* w_skip,
@@ -932,20 +1416,23 @@ extern "C" int wavenet_gen_launch(
     const float* primed, const float* noise, float* ring, float* out,
     unsigned long long seed, long long ring_stride, int B, int T, int L,
     int R, int D, int W, int S, int C, int prime_len, int deterministic,
-    int quantized, int bf16, float temperature, void* stream) {
+    int quantized, int bf16, float temperature, int blocks, void* stream) {
   const bool bad_head = quantized ? (C < 1 || !(temperature > 0.f))
                                   : (C < 3 || C % 3 != 0);
   // The bulk copies read 16-byte aligned spans.
   const bool misaligned =
       (reinterpret_cast<uintptr_t>(w_tap) | reinterpret_cast<uintptr_t>(w_res_t)) & 15;
+  const bool bad_blocks = blocks != 1 && blocks != 2 && blocks != 4 &&
+                          blocks != MAX_CLUSTER;
   if (B < 1 || T < 1 || L < 1 || R < 1 || D < 1 || W < 1 || S < 1 ||
-      pad8(S) > MAX_S || bad_head || misaligned ||
+      pad8(S) > MAX_S || bad_head || misaligned || bad_blocks ||
       (prime_len > 0 && primed == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{lc_proj, w_tap, w_res_t, b_res, front, w_skip, skip_bias,
            post1, b1, post2_t, b2, dil, primed, noise, ring, out,
-           seed, ring_stride, B, T, L, pad8(R), pad8(D), D, W, pad8(S), C,
-           prime_len, deterministic, quantized, 0, temperature};
+           seed, ring_stride, B, T, L, pad8(R), pad_split(D, blocks), D, W,
+           pad8(S), C, prime_len, deterministic, quantized, 0, temperature,
+           blocks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_widths<__nv_bfloat16>(p, s) : launch_widths<float>(p, s);
 }

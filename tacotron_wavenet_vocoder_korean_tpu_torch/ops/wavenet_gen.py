@@ -7,8 +7,10 @@ Counterpart of the JAX package's ``ops/wavenet_pallas.py``
 replaces the Pallas kernel ``pallas_generate`` with both of its sampling
 heads (mixture of logistics for scalar input, Q-way softmax for
 ``mulaw-quantize``) and both weight types (f32, bf16), at any width whose
-layout fits a block's shared memory (``kernel_limits_error``); it computes
-the same function on an unfused packed layout of its own:
+layout fits a block's shared memory or, with each stream's gate channels
+split over a thread-block cluster of up to 8 blocks, the cluster's
+(``kernel_plan``, ``kernel_limits_error``); it computes the same function
+on an unfused packed layout of its own:
 
   w_tap     [L, 2D, 2R]  row 2j+f (f=0 filter, 1 gate) of channel j over
                          [old tap (h[t-d]) | current tap (h[t])]
@@ -34,8 +36,10 @@ as the Pallas kernel does.
 
 The kernel reads this layout with R, D and S zero-padded to multiples of 8
 (``kernel_layout``, made by the wrapper; the lc projection keeps the
-caller's D).  ``pack_params``, the twin and ``generate_flops`` /
-``generate_bytes`` keep the caller's widths.
+caller's D).  Split over k > 1 blocks, D is padded to a multiple of 8k and
+``w_res_t`` and ``w_skip`` are repacked so that each block's share is
+contiguous (``cluster_layout``).  ``pack_params``, the twin and
+``generate_flops`` / ``generate_bytes`` keep the caller's widths.
 """
 from __future__ import annotations
 
@@ -65,6 +69,8 @@ SMEM_LIMIT = 232_448
 _THREADS = 512
 _MAX_SKIP = 8 * _THREADS      # the kernel's partial sums: S <= 4096
 _MAX_SLOTS = {torch.bfloat16: 8, torch.float32: 4}
+# Blocks per stream: one, or a thread-block cluster (8 is the portable most).
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 def pack_params(cfg: WaveNetConfig, params: Params,
@@ -130,11 +136,26 @@ def pack_params(cfg: WaveNetConfig, params: Params,
             else v.contiguous() for k, v in packed.items()}
 
 
-def kernel_variant(packed: Packed) -> str:
+def kernel_widths(packed: Packed) -> Tuple[int, int, int, int, int, int]:
+    """(L, R, D, S, C, W) of a packed layout, the caller's widths."""
+    L, two_d, two_r = packed["w_tap"].shape
+    W = (packed["front_oh"].shape[0] if "front_oh" in packed
+         else packed["front_t"].shape[1])
+    return (L, two_r // 2, two_d // 2, packed["w_skip"].shape[1],
+            packed["b2"].shape[0], W)
+
+
+def kernel_variant(packed: Packed, blocks: Optional[int] = None) -> str:
     """The kernel variant a packed layout runs: its head and weight type,
-    e.g. ``"softmax-bf16"``."""
+    e.g. ``"softmax-bfloat16"``, and ``-cluster`` when its stream is split
+    over ``blocks`` > 1 blocks (by default ``kernel_plan``'s)."""
     head = "softmax" if "front_oh" in packed else "mol"
-    return f"{head}-{str(packed['w_tap'].dtype).replace('torch.', '')}"
+    dtype = packed["w_tap"].dtype
+    if blocks is None:
+        blocks = (kernel_plan(*kernel_widths(packed), dtype)[0]
+                  if dtype in WEIGHT_DTYPES else 1)
+    name = f"{head}-{str(dtype).replace('torch.', '')}"
+    return name if blocks == 1 else f"{name}-cluster"
 
 
 def precompute_lc_proj(packed: Packed, lc: torch.Tensor,
@@ -265,31 +286,67 @@ def _pad(n: int, to: int = PAD) -> int:
 
 
 def _smem_total(L: int, R: int, D: int, S: int, C: int, W: int,
-                slots: int, wsize: int) -> int:
+                slots: int, wsize: int, blocks: int = 1) -> int:
     """``smem_layout(...).total`` of ``csrc/wavenet_gen.cu`` at padded
-    widths: the weight ring, its mbarriers (and one per layer), the f32
-    buffers, the int tables."""
+    widths (D a block's share when ``blocks`` > 1): the weight ring, its
+    mbarriers (and one per layer; with a cluster, another per layer), the
+    f32 buffers (with a cluster, the two exchange buffers [2][k][R], the
+    partial skip vector and the sample's slot), the int tables."""
+    split = blocks > 1
     bars = slots * 5 * R * D * wsize
-    f32s = (bars + 8 * (2 * slots + L) + 15) & ~15
+    f32s = (bars + 8 * (2 * slots + L + (L if split else 0)) + 15) & ~15
     floats = (_pad(W, 4) + 2 * R + L * R + 2 * L * D + L * D + 2 * S
-              + _pad(C, 4) + L * R + 8 * _THREADS)
+              + _pad(C, 4) + L * R + 8 * _THREADS
+              + (2 * blocks * R + S + 4 if split else 0))
     return f32s + 4 * floats + 12 * L
+
+
+def _block_smem(L: int, R: int, D: int, S: int, C: int, W: int,
+                blocks: int, weight_dtype: torch.dtype) -> Tuple[int, int]:
+    """(bytes, weight slots) of one block when a stream runs on ``blocks``
+    blocks: as many slots as fit in ``SMEM_LIMIT``, up to 8 (bf16) or 4
+    (f32); (bytes with one slot, 0) when not even one fits."""
+    R, S, Dl = _pad(R), _pad(S), _pad(D, PAD * blocks) // blocks
+    wsize = torch.finfo(weight_dtype).bits // 8
+    for slots in range(_MAX_SLOTS[weight_dtype], 0, -1):
+        total = _smem_total(L, R, Dl, S, C, W, slots, wsize, blocks)
+        if total <= SMEM_LIMIT:
+            return total, slots
+    return total, 0
 
 
 def kernel_smem(L: int, R: int, D: int, S: int, C: int, W: int,
                 weight_dtype: torch.dtype) -> Tuple[int, int]:
     """(shared memory bytes, weight slots) of one block of the kernel at the
-    caller's widths, as ``wavenet_gen_smem_bytes`` / ``wavenet_gen_slots``
-    of ``csrc/wavenet_gen.cu`` compute them: as many slots of the weight
-    ring as fit in ``SMEM_LIMIT``, up to 8 (bf16) or 4 (f32); (bytes with
-    one slot, 0) when not even one fits."""
-    R, D, S = _pad(R), _pad(D), _pad(S)
-    wsize = torch.finfo(weight_dtype).bits // 8
-    for slots in range(_MAX_SLOTS[weight_dtype], 0, -1):
-        total = _smem_total(L, R, D, S, C, W, slots, wsize)
-        if total <= SMEM_LIMIT:
-            return total, slots
-    return total, 0
+    caller's widths with one block per stream, as ``wavenet_gen_smem_bytes``
+    / ``wavenet_gen_slots`` of ``csrc/wavenet_gen.cu`` compute them: as
+    many slots of the weight ring as fit in ``SMEM_LIMIT``, up to 8 (bf16)
+    or 4 (f32); (bytes with one slot, 0) when not even one fits."""
+    return _block_smem(L, R, D, S, C, W, 1, weight_dtype)
+
+
+def kernel_plan(L: int, R: int, D: int, S: int, C: int, W: int,
+                weight_dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(blocks per stream, weight slots, shared memory bytes per block) the
+    kernel runs the caller's widths with, as ``wavenet_gen_plan`` of
+    ``csrc/wavenet_gen.cu`` computes it: one block whenever its layout fits
+    (with ``kernel_smem``'s slots and bytes); else, of the cluster sizes 2,
+    4 and 8 whose per-block layout fits, the fewest that leave each chain
+    lane at most one gate channel (D/k <= 32), or the fewest when none does
+    (R = D = 128 at 50 layers: 4 blocks in either weight type, though 2
+    fit in bf16; see PERF.md); (8, 0, bytes at 8 blocks with one slot)
+    when none fits."""
+    fits = []
+    for blocks in CLUSTER_SIZES:
+        nbytes, slots = _block_smem(L, R, D, S, C, W, blocks, weight_dtype)
+        if slots:
+            if blocks == 1:
+                return 1, slots, nbytes
+            fits.append((blocks, slots, nbytes))
+    if not fits:
+        return blocks, 0, nbytes
+    narrow = [f for f in fits if _pad(D, PAD * f[0]) // f[0] <= 32]
+    return (narrow or fits)[0]
 
 
 def _limits_error(L: int, R: int, D: int, W: int, S: int, C: int,
@@ -304,12 +361,14 @@ def _limits_error(L: int, R: int, D: int, W: int, S: int, C: int,
                 f"got S={S}")
     if not quantized and (C < 3 or C % 3):
         return f"the MoL head takes 3 * nr_mix channels, got {C}"
-    nbytes, slots = kernel_smem(L, R, D, S, C, W, weight_dtype)
+    blocks, slots, nbytes = kernel_plan(L, R, D, S, C, W, weight_dtype)
     if slots == 0:
         return (f"the CUDA kernel needs {nbytes:,} bytes of shared memory "
                 f"per block at L={L}, R={R}, D={D}, S={S} with "
-                f"{str(weight_dtype).replace('torch.', '')} weights and one "
-                f"weight slot, over the {SMEM_LIMIT:,} bytes a block may use")
+                f"{str(weight_dtype).replace('torch.', '')} weights, one "
+                f"weight slot and the gate channels split over {blocks} "
+                f"blocks of a cluster, over the {SMEM_LIMIT:,} bytes a block "
+                "may use")
     return None
 
 
@@ -319,11 +378,13 @@ def kernel_limits_error(cfg: WaveNetConfig,
     """Why the CUDA kernel cannot run ``cfg``'s widths with ``weight_dtype``
     weights (the message names the limit), or None when it can.  The kernel
     takes any R, D, front taps, MoL components and softmax classes, and S
-    up to 4096, as long as one block's shared memory (``kernel_smem``: the
-    weight ring of at least one layer slot, 5RD weights, plus L(3R + 3D)
-    + 2S + C + W + 4096 floats of buffers) fits in the 232,448 bytes an
-    H100 block may use; and, as the JAX package's kernel, two taps per
-    dilated layer (``filter_width`` 2).  The plain twin takes any width."""
+    up to 4096, as long as a block's shared memory (``kernel_plan``: the
+    weight ring of at least one layer slot, 5RD/k weights, plus L(3R +
+    3D/k) + 2S + C + W + 4096 floats of buffers, with the gate channels
+    split over a cluster of k = 1, 2, 4 or 8 blocks) fits in the 232,448
+    bytes an H100 block may use; and, as the JAX package's kernel, two taps
+    per dilated layer (``filter_width`` 2).  The plain twin takes any
+    width."""
     if cfg.filter_width != 2:
         return (f"the generation kernel takes filter_width 2 (two taps per "
                 f"dilated layer), got {cfg.filter_width}")
@@ -336,7 +397,7 @@ def kernel_limits_error(cfg: WaveNetConfig,
         not scalar, weight_dtype)
 
 
-def kernel_layout(packed: Packed) -> Packed:
+def kernel_layout(packed: Packed, blocks: int = 1) -> Packed:
     """``packed`` with R, D and S zero-padded to multiples of 8, the layout
     the CUDA kernel reads (every weight row a whole number of 16-byte
     chunks in either weight type); ``packed`` itself when no width needs
@@ -344,10 +405,11 @@ def kernel_layout(packed: Packed) -> Packed:
     lc, so it gates tanh(0) * sigmoid(0) = 0; a padded residual row stays
     0; a padded skip column gives relu(0) = 0 into zero post rows.  The lc
     weights are left as they are: the kernel takes the caller's projection
-    and stages it into the padded layout."""
+    and stages it into the padded layout.  For a stream split over
+    ``blocks`` blocks D is padded to a multiple of 8 * ``blocks``."""
     L, two_d, two_r = packed["w_tap"].shape
     D, R, S = two_d // 2, two_r // 2, packed["w_skip"].shape[1]
-    Rp, Dp, Sp = _pad(R), _pad(D), _pad(S)
+    Rp, Dp, Sp = _pad(R), _pad(D, PAD * blocks), _pad(S)
     if (Rp, Dp, Sp) == (R, D, S):
         return packed
 
@@ -376,6 +438,29 @@ def kernel_layout(packed: Packed) -> Packed:
     return out
 
 
+def cluster_layout(packed: Packed, blocks: int) -> Packed:
+    """``kernel_layout(packed, blocks)`` with each block's share of the
+    residual and skip weights contiguous, the layout the cluster instance
+    reads: ``w_res_t`` [L, k, R, D/k] (block c's residual columns
+    [c D/k, (c+1) D/k) of each layer) and ``w_skip`` [k, L*D/k, S] (block
+    c's rows of each layer's skip kernel), k = ``blocks``.  ``w_tap``'s
+    rows 2j+f are already contiguous per block.  ``kernel_layout(packed)``
+    itself for one block."""
+    padded = kernel_layout(packed, blocks)
+    if blocks == 1:
+        return padded
+    L, R, D = padded["w_res_t"].shape
+    S = padded["w_skip"].shape[1]
+    Dl = D // blocks
+    out = dict(padded)
+    out["w_res_t"] = (padded["w_res_t"].view(L, R, blocks, Dl)
+                      .permute(0, 2, 1, 3).contiguous())
+    out["w_skip"] = (padded["w_skip"].view(L, blocks, Dl, S)
+                     .permute(1, 0, 2, 3).reshape(blocks, L * Dl, S)
+                     .contiguous())
+    return out
+
+
 _PACKED_ORDER = ("w_tap", "w_res_t", "b_res", "front", "w_skip",
                  "skip_bias", "post1", "b1", "post2_t", "b2")
 
@@ -386,7 +471,7 @@ def _launcher():
     fn = load_library("wavenet_gen").wavenet_gen_launch
     fn.argtypes = ([ctypes.c_void_p] * 16
                    + [ctypes.c_uint64, ctypes.c_int64] + [ctypes.c_int] * 12
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -415,13 +500,27 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     ``lc_proj [B, T, L*2D]``.
 
     On a CUDA tensor this launches ``csrc/wavenet_gen.cu`` (one block per
-    stream, on ``kernel_layout(packed)``) and counts the launch in
+    stream on ``kernel_layout(packed)``, or a cluster of ``kernel_plan``'s
+    blocks per stream on ``cluster_layout``) and counts the launch in
     ``wavenet_generate.launches`` and, by ``kernel_variant``, in
-    ``wavenet_generate.variant_launches``; widths the kernel does not take
-    raise ``ValueError``.  On a CPU tensor it runs ``generate_plain``.  Stochastic mode takes its noise from
-    ``noise`` if given, else from Philox seeded by ``generator``.
-    ``temperature`` scales the softmax head's scores; the MoL head takes
-    only 1.0."""
+    ``wavenet_generate.variant_launches``; widths the kernel does not take,
+    and a launch the card refuses, raise.  On a CPU tensor it runs
+    ``generate_plain``.  Stochastic mode takes its noise from ``noise`` if
+    given, else from Philox seeded by ``generator``.  ``temperature`` scales
+    the softmax head's scores; the MoL head takes only 1.0."""
+    return _generate(packed, lc_proj, deterministic, generator, noise,
+                     primed, prime_len, temperature)
+
+
+def _generate(packed: Packed, lc_proj: torch.Tensor,
+              deterministic: bool = False,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[torch.Tensor] = None,
+              primed: Optional[torch.Tensor] = None,
+              prime_len: int = 0, temperature: float = 1.0,
+              blocks: Optional[int] = None) -> torch.Tensor:
+    """``wavenet_generate``, with ``blocks`` forcing the blocks per stream
+    on the card (1, 2, 4 or 8, for timing; ``kernel_plan``'s by default)."""
     quantized = "front_oh" in packed
     if not deterministic and noise is None and generator is None:
         raise ValueError("stochastic generation needs a generator or noise")
@@ -457,6 +556,12 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     error = _limits_error(L, R, D, W, S, C, quantized, wdt)
     if error is not None:
         raise ValueError(error)
+    if blocks is None:
+        blocks = kernel_plan(L, R, D, S, C, W, wdt)[0]
+    elif blocks not in CLUSTER_SIZES or not _block_smem(
+            L, R, D, S, C, W, blocks, wdt)[1]:
+        raise ValueError(f"{blocks} blocks per stream do not take L={L}, "
+                         f"R={R}, D={D}, S={S}")
     if LD2 != L * two_d:
         raise ValueError(f"lc_proj {tuple(lc_proj.shape)} does not match "
                          f"L={L} layers of 2D={two_d}")
@@ -464,7 +569,7 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
         raise ValueError(f"prime_len={prime_len} outside [0, {T}]")
     f32 = torch.float32
     _check("lc_proj", lc_proj, f32, dev)
-    padded = kernel_layout(packed)
+    padded = cluster_layout(packed, blocks)
     args = dict(padded, front=padded["front_oh" if quantized else "front_t"])
     for k in _PACKED_ORDER:
         _check(k, args[k], wdt if k in WEIGHTS + ("front",) else f32, dev,
@@ -477,7 +582,7 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
 
     dil = packed["dilations"]
     ring_stride = int(dil.sum().item()) * _pad(R)
-    ring = torch.zeros(B, ring_stride, dtype=f32, device=dev)
+    ring = torch.zeros(B, blocks, ring_stride, dtype=f32, device=dev)
     out = torch.empty(B, T, dtype=f32, device=dev)
     seed = 0
     if not deterministic and noise is None:
@@ -489,12 +594,16 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
         dil.data_ptr(), ptr(primed), ptr(noise), ring.data_ptr(),
         out.data_ptr(), seed, ring_stride, B, T, L, R, D, W, S, C,
         int(prime_len), int(deterministic), int(quantized),
-        int(wdt == torch.bfloat16), float(temperature),
+        int(wdt == torch.bfloat16), float(temperature), blocks,
         torch.cuda.current_stream(dev).cuda_stream)
+    if rc <= -1000:
+        raise RuntimeError(
+            f"wavenet_gen kernel launch refused: the card holds {-1000 - rc} "
+            f"clusters of {blocks} blocks at once, fewer than B={B} streams")
     if rc != 0:
         raise RuntimeError(f"wavenet_gen kernel launch failed: CUDA error {rc}")
     wavenet_generate.launches += 1
-    wavenet_generate.variant_launches[kernel_variant(packed)] += 1
+    wavenet_generate.variant_launches[kernel_variant(packed, blocks)] += 1
     return out
 
 

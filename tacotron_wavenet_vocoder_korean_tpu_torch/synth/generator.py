@@ -77,10 +77,12 @@ class WaveNetGenerator:
     """Holds the config, the converted parameters on ``device``, the packed
     kernel layout (matrices in ``weight_dtype``: by default bf16 on a GPU,
     f32 on the CPU) and the upsampler.  On a GPU the CUDA kernel serves any
-    width whose layout fits a block's shared memory; a config it does not
-    take (``kernel_limits_error`` with this weight type, e.g. R = D = 128
-    at 50 layers) raises ``ValueError`` here, before any weight moves to
-    the card."""
+    width whose layout fits a block's shared memory, or a cluster's of up
+    to 8 blocks per stream (R = D = 128 at 50 layers takes 4), in one
+    launch per ``generate`` call; a
+    config it does not take (``kernel_limits_error`` with this weight
+    type, e.g. R = D = 256 at 50 layers) raises ``ValueError`` here, before
+    any weight moves to the card."""
 
     step: Optional[int] = None      # the checkpoint's step, when loaded
 

@@ -173,12 +173,13 @@ def test_cuda_softmax_philox_is_seeded_and_in_range():
 
 @pytest.mark.cuda
 def test_cuda_generator_refuses_kernel_widths_before_moving_weights():
-    """R = D = 128 at wn_moon's 50 layers on the card, whose layout exceeds
-    a block's shared memory even with one weight slot: ValueError naming
-    the bytes at construction, in both weight types, with nothing
-    allocated on the card."""
+    """R = D = 256 at wn_moon's 50 layers on the card, whose layout exceeds
+    a block's shared memory even with one weight slot and the gate
+    channels split over an 8-block cluster: ValueError naming the bytes at
+    construction, in both weight types, with nothing allocated on the
+    card."""
     dev = _cuda()
-    wide = WaveNetConfig(residual_channels=128, dilation_channels=128)
+    wide = WaveNetConfig(residual_channels=256, dilation_channels=256)
     params = convert.seeded_params(wide, 0)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)

@@ -201,9 +201,10 @@ def test_kernel_limits_error(case):
     """The CUDA kernel's limits, in one function: R = D = 8 (the test
     widths), the committed wn_moon config (MoL head, and switched to the
     256-way softmax head), 33 front taps, S = 516, 33 mixture components and
-    512 classes are accepted; R = D = 128 at wn_moon's 50 layers is refused
-    for its shared memory (in both weight types), and the two limits that
-    remain name themselves: S <= 4096 and two taps per dilated layer."""
+    512 classes are accepted; R = D = 256 at wn_moon's 50 layers is refused
+    for its shared memory (in both weight types, even split over an 8-block
+    cluster: R = D = 128 now takes one), and the two limits that remain
+    name themselves: S <= 4096 and two taps per dilated layer."""
     moon = load_config(WN_MOON).wavenet
     quantized = dataclasses.replace(
         moon, input_type="mulaw-quantize", scalar_input=False,
@@ -217,8 +218,8 @@ def test_kernel_limits_error(case):
         "mol": (dataclasses.replace(moon, out_channels=99), None),
         "classes": (dataclasses.replace(quantized, quantization_channels=512,
                                         out_channels=512), None),
-        "ceiling": (dataclasses.replace(moon, residual_channels=128,
-                                        dilation_channels=128),
+        "ceiling": (dataclasses.replace(moon, residual_channels=256,
+                                        dilation_channels=256),
                     "bytes of shared memory"),
         "skip_limit": (dataclasses.replace(moon, dilations=(1, 2),
                                            skip_channels=4104),

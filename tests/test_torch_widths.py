@@ -62,8 +62,10 @@ CARD_WIDTHS = {
                                      out_channels=120),
     "softmax_q300": CPU_WIDTHS["softmax_q300"],
 }
-CEILING = dataclasses.replace(MOON, residual_channels=128,
-                              dilation_channels=128)
+# Over the shared-memory ceiling even with the gate channels split over an
+# 8-block cluster (R = D = 128 now takes a cluster: tests/test_torch_cluster.py).
+CEILING = dataclasses.replace(MOON, residual_channels=256,
+                              dilation_channels=256)
 
 
 def _jax_cfg(cfg):
@@ -157,8 +159,9 @@ def test_kernel_layout_leaves_aligned_widths_alone():
 def test_kernel_limits_error_takes_every_width_that_fits(dtype):
     """Accepted: each width above in both weight types, 2x wn_moon's at 50
     layers with 3 bf16 weight slots or 1 f32 slot, wn_moon's with the full
-    ring (8 / 4).  Refused: R = D = 128 at 50 layers, naming the bytes of
-    shared memory and the 232,448 a block may use."""
+    ring (8 / 4), R = D = 128 at 50 layers (on a cluster).  Refused: R = D
+    = 256 at 50 layers, naming the bytes of shared memory per block at 8
+    blocks and the 232,448 a block may use."""
     wdt = getattr(torch, dtype)
     for name, cfg in {**CPU_WIDTHS, **CARD_WIDTHS}.items():
         assert G.kernel_limits_error(cfg, wdt) is None, name
@@ -167,11 +170,14 @@ def test_kernel_limits_error_takes_every_width_that_fits(dtype):
         c.skip_channels, c.out_channels, c.initial_filter_width, wdt)[1]
     assert slots(TWICE) == (3 if dtype == "bfloat16" else 1)
     assert slots(MOON) == (8 if dtype == "bfloat16" else 4)
+    assert G.kernel_limits_error(dataclasses.replace(
+        MOON, residual_channels=128, dilation_channels=128), wdt) is None
     error = G.kernel_limits_error(CEILING, wdt)
     assert error is not None
     assert "shared memory" in error and "232,448" in error
-    nbytes = G.kernel_smem(50, 128, 128, 512, 30, 32, wdt)[0]
+    blocks, _, nbytes = G.kernel_plan(50, 256, 256, 512, 30, 32, wdt)
     assert f"{nbytes:,}" in error and nbytes > G.SMEM_LIMIT
+    assert blocks == 8 and "8 blocks" in error
 
 
 def _cuda():
