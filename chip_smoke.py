@@ -83,8 +83,7 @@ beside the run without it, and on two ranks launched by
 launch); the WaveNet mesh step at the ``wn_moon`` width as (n_data,
 n_model) = (1, 2) and (2, 1) against one process; Tacotron's data-parallel
 step at the ``both_r2`` width on two ranks against one, and
-``train_tacotron --use_mesh`` on two ranks beside one; the steps' times
-and the collectives' share.
+``train_tacotron --use_mesh`` on two ranks beside one; the steps' times.
 
 Wavs, run dirs and unpacked checkpoints go to temporary directories that
 are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
@@ -371,8 +370,7 @@ ATT_CLI_HPARAMS = ("tacotron.compute_dtype=bfloat16,tacotron.fused_rnn=true,"
 # the new running variances within MESH_STATS_TOL of each leaf's largest,
 # the running means of the largest of all means; then train_tacotron
 # --use_mesh on 2 ranks beside 1 as in (b).
-# (e) s/step over MESH_REPS steps, then the collectives' share with the
-# device synchronised around each collective (host clock).
+# (e) s/step over MESH_REPS steps (host clock, the device synchronised).
 MESH_RANK_TIMEOUT_S = 300
 MESH_CLI_STEPS = 10
 MESH_HPARAMS = ("train.sync_every=1,train.summary_interval=1,"
@@ -2950,28 +2948,15 @@ def stop_children() -> None:
 
 def timed_steps(step, reps: int, device) -> dict:
     """Host seconds per call of ``step`` over ``reps`` calls (the device
-    synchronised around them), then the same with the collective clock
-    on: its share of those seconds."""
-    from tacotron_wavenet_vocoder_korean_tpu_torch.parallel import (
-        CollectiveClock)
+    synchronised around them)."""
     sync = ((lambda: torch.cuda.synchronize(device))
             if device.type == "cuda" else (lambda: None))
-    out = {}
-    for clocked in (False, True):
-        CollectiveClock.reset(clocked)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        sync()
-        out["clocked" if clocked else "plain"] = (time.perf_counter()
-                                                  - t0) / reps
-    out["s_per_step"] = out.pop("plain")
-    out["collective_s_per_step"] = CollectiveClock.seconds / reps
-    out["collective_share"] = CollectiveClock.seconds / reps / out["clocked"]
-    out["collectives_per_step"] = CollectiveClock.calls / reps
-    CollectiveClock.reset(False)
-    return out
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    sync()
+    return {"s_per_step": (time.perf_counter() - t0) / reps}
 
 
 def _wavenet_cfg():
@@ -3146,7 +3131,7 @@ def mesh_phases(dev, smi, tmp, data: str, dirs: list) -> dict:
     (2, 1), against the one-process step; (d) Tacotron data parallel at
     both_r2's width, the library step on 2 ranks against 1, and
     ``train_tacotron --use_mesh`` on 2 ranks beside 1; (e) the steps'
-    times and the collectives' share.  The commands of (a), (b) and (d)
+    times.  The commands of (a), (b) and (d)
     run side by side first, then the library steps (timed), then the
     serving.  Two ranks share the card: nothing here measures scaling
     across cards.  Returns the ``mesh`` line, with the serving launches
@@ -3359,9 +3344,7 @@ def mesh_phases(dev, smi, tmp, data: str, dirs: list) -> dict:
     with phase("mesh (e): times, two ranks sharing the card"):
         for name in ("e_wavenet", "e_tacotron"):
             for k, t in out[name].items():
-                log(f"  {name[2:]} {k}: {t['s_per_step']:.4f} s/step, "
-                    f"collectives {t['collective_share']:.1%} of a clocked "
-                    f"step ({t['collectives_per_step']:.0f} per step) "
+                log(f"  {name[2:]} {k}: {t['s_per_step']:.4f} s/step "
                     f"[{smi}]")
     return out
 

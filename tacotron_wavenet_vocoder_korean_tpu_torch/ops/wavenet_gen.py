@@ -53,6 +53,7 @@ import torch
 from ..config import WaveNetConfig
 from ..models.mixture import U_MAX, U_MIN, sample_from_discretized_mix_logistic
 from ..models.wavenet import Params
+from ..utils import profiling
 from .build import load_library
 
 Packed = Dict[str, torch.Tensor]
@@ -507,9 +508,12 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     and a launch the card refuses, raise.  On a CPU tensor it runs
     ``generate_plain``.  Stochastic mode takes its noise from ``noise`` if
     given, else from Philox seeded by ``generator``.  ``temperature`` scales
-    the softmax head's scores; the MoL head takes only 1.0."""
-    return _generate(packed, lc_proj, deterministic, generator, noise,
-                     primed, prime_len, temperature)
+    the softmax head's scores; the MoL head takes only 1.0.  The call is
+    the ``wavenet_gen.launch`` span (``utils/profiling``)."""
+    B, T = lc_proj.shape[:2]
+    with profiling.span("wavenet_gen.launch", streams=B, steps=T):
+        return _generate(packed, lc_proj, deterministic, generator, noise,
+                         primed, prime_len, temperature)
 
 
 def _generate(packed: Packed, lc_proj: torch.Tensor,
@@ -562,6 +566,7 @@ def _generate(packed: Packed, lc_proj: torch.Tensor,
             L, R, D, S, C, W, blocks, wdt)[1]:
         raise ValueError(f"{blocks} blocks per stream do not take L={L}, "
                          f"R={R}, D={D}, S={S}")
+    profiling.annotate(blocks=blocks, variant=kernel_variant(packed, blocks))
     if LD2 != L * two_d:
         raise ValueError(f"lc_proj {tuple(lc_proj.shape)} does not match "
                          f"L={L} layers of 2D={two_d}")
@@ -626,7 +631,8 @@ def incremental_generate_cuda(cfg: WaveNetConfig, packed: Packed,
     ``[B, T_seed, 1]`` samples for scalar input, ``[B, T_seed, Q]`` one-hot
     classes otherwise (the scan sampler's convention)."""
     B, T, _ = lc.shape
-    lc_proj = precompute_lc_proj(packed, lc, gc)
+    with profiling.span("generate.project"):
+        lc_proj = precompute_lc_proj(packed, lc, gc)
     primed, prime_len = None, 0
     if seed_audio is not None:
         prime_len = seed_audio.shape[1]

@@ -29,7 +29,6 @@ import os
 import re
 import socket
 import sys
-import time
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -344,36 +343,6 @@ def gather_tree(mesh: Mesh, tree: Any, placements: Any) -> Any:
 # Collectives
 # ---------------------------------------------------------------------------
 
-class CollectiveClock:
-    """Host seconds spent in this process's collectives while ``enabled``:
-    the device is synchronised before each collective (outside the
-    count) and after it (inside), so the count is the collective's own
-    wall.  Off by default, when collectives do not synchronise."""
-    enabled = False
-    seconds = 0.0
-    calls = 0
-
-    @classmethod
-    def reset(cls, enabled: bool = True) -> None:
-        cls.enabled, cls.seconds, cls.calls = enabled, 0.0, 0
-
-
-def all_reduce(t: torch.Tensor, group) -> None:
-    """``dist.all_reduce`` (a sum, in place), counted by
-    ``CollectiveClock`` when it is on."""
-    if not CollectiveClock.enabled:
-        dist.all_reduce(t, group=group)
-        return
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    CollectiveClock.seconds += time.perf_counter() - t0
-    CollectiveClock.calls += 1
-
-
 def _all_reduce_flat(tensors: List[torch.Tensor], group) -> None:
     """Sum each tensor over ``group`` in place: one ``all_reduce`` per
     dtype, over the tensors flattened into one buffer."""
@@ -382,7 +351,7 @@ def _all_reduce_flat(tensors: List[torch.Tensor], group) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        all_reduce(flat, group)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for t in ts:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -406,13 +375,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.clone()
-        all_reduce(y, group)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        all_reduce(g, ctx.group)
+        dist.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -425,7 +394,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        all_reduce(g, ctx.group)
+        dist.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -433,7 +402,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.clone()
-        all_reduce(y, group)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod

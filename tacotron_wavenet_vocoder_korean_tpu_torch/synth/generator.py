@@ -31,6 +31,7 @@ from ..models.wavenet import Params, Upsampler
 from ..ops.wavenet_gen import (incremental_generate_cuda,
                                 kernel_limits_error, pack_params)
 from ..train.checkpoints import CheckpointReader
+from ..utils import profiling
 
 MAX_STREAMS = 8
 
@@ -167,7 +168,8 @@ class WaveNetGenerator:
 
         ``seed`` seeds the ``torch.Generator`` of the sampling noise.
         ``temperature`` scales the softmax head (``mulaw-quantize``); the
-        mixture-of-logistics head takes only 1.0."""
+        mixture-of-logistics head takes only 1.0.  Under a profiler each
+        call records the ``generate`` spans (``utils/profiling``)."""
         single = not isinstance(mel, (list, tuple))
         mels = [np.asarray(m, np.float32) for m in ([mel] if single else mel)]
         if not 1 <= len(mels) <= MAX_STREAMS:
@@ -175,36 +177,47 @@ class WaveNetGenerator:
                              f"{len(mels)}")
         a = self.cfg.audio
         hop = a.hop_size
-        pad_value = -a.max_abs_value if a.symmetric_mels else 0.0
-        batch, frames = batch_mels(mels, pad_value)
-        dev = self.device
+        frames = [m.shape[0] for m in mels]
+        with profiling.span("generate", streams=len(mels), frames=frames,
+                            steps=max(frames) * hop,
+                            samples=sum(frames) * hop,
+                            greedy=bool(deterministic)):
+            with profiling.span("generate.prepare"):
+                pad_value = -a.max_abs_value if a.symmetric_mels else 0.0
+                batch, _ = batch_mels(mels, pad_value)
+                dev = self.device
 
-        gc = None
-        if self.gc_enable:
-            ids = np.broadcast_to(
-                np.asarray(0 if speaker_id is None else speaker_id),
-                (len(mels),)).copy()
-            gc = torch.from_numpy(self.gc_table[ids]).to(dev)
+                gc = None
+                if self.gc_enable:
+                    ids = np.broadcast_to(
+                        np.asarray(0 if speaker_id is None else speaker_id),
+                        (len(mels),)).copy()
+                    gc = torch.from_numpy(self.gc_table[ids]).to(dev)
 
-        seed_audio = None
-        total = batch.shape[1] * hop
-        if wav_seed is not None:
-            # Only the receptive field of the seed can reach the output; keep
-            # at least one free-running step.
-            keep = min(self.cfg.wavenet.receptive_field, total - 1)
-            seed_audio = encode_seed_audio(self.cfg, wav_seed, len(mels))
-            seed_audio = seed_audio[:, -keep:].contiguous().to(dev)
+                seed_audio = None
+                total = batch.shape[1] * hop
+                if wav_seed is not None:
+                    # Only the receptive field of the seed can reach the
+                    # output; keep at least one free-running step.
+                    keep = min(self.cfg.wavenet.receptive_field, total - 1)
+                    seed_audio = encode_seed_audio(self.cfg, wav_seed,
+                                                   len(mels))
+                    seed_audio = seed_audio[:, -keep:].contiguous().to(dev)
 
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        with no_tf32():
-            lc = self.upsampler(torch.from_numpy(batch).to(dev))
-            samples = incremental_generate_cuda(
-                self.cfg.wavenet, self.packed, lc, generator=gen, gc=gc,
-                seed_audio=seed_audio, deterministic=deterministic,
-                temperature=temperature)
-        samples = samples.cpu().numpy()
-        wavs = [self._decode_samples(samples[i, :frames[i] * hop])
-                for i in range(len(mels))]
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                batch = torch.from_numpy(batch).to(dev)
+            with no_tf32():
+                with profiling.span("generate.condition"):
+                    lc = self.upsampler(batch)
+                samples = incremental_generate_cuda(
+                    self.cfg.wavenet, self.packed, lc, generator=gen, gc=gc,
+                    seed_audio=seed_audio, deterministic=deterministic,
+                    temperature=temperature)
+            with profiling.span("generate.copy_out"):
+                samples = samples.cpu().numpy()
+            with profiling.span("generate.decode"):
+                wavs = [self._decode_samples(samples[i, :frames[i] * hop])
+                        for i in range(len(mels))]
         return wavs[0] if single else wavs
 
     def generate_to_file(self, mel_path: Union[str, Sequence[str]],

@@ -25,8 +25,7 @@ from typing import (Any, Callable, Collection, Dict, List, NamedTuple,
                     Optional, Tuple)
 
 import torch
-
-from ..parallel.mesh import all_reduce
+import torch.distributed as dist
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -163,7 +162,7 @@ def global_norm(tree: Params, sharded: Collection[str] = (),
     sq = torch.stack(norms) ** 2
     split = torch.tensor([k in sharded for k in tree], device=sq.device)
     part = torch.sum(torch.where(split, sq, torch.zeros_like(sq)))
-    all_reduce(part, mesh.model_group)
+    dist.all_reduce(part, group=mesh.model_group)
     return torch.sqrt(torch.sum(torch.where(split, torch.zeros_like(sq), sq))
                       + part)
 

@@ -39,7 +39,7 @@ from tacotron_wavenet_vocoder_korean_tpu_torch.train.wavenet_task import (
     WaveNetTask, batch_to_device)
 from tacotron_wavenet_vocoder_korean_tpu_torch.utils import infolog
 from tacotron_wavenet_vocoder_korean_tpu_torch.utils.profiling import (
-    StepTimer, maybe_trace_step)
+    maybe_trace_step)
 from torch_port_util import plain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -373,8 +373,3 @@ def test_infolog_value_window_and_step_timer(tmp_path, capsys):
     assert (w.count, w.sum, w.average) == (3, 9.0, 3.0)
     w.reset()
     assert w.average == 0.0
-    timer = StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.count == 3 and timer.mean >= 0
