@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build the generation kernel,
 hold each of its four variants (mixture-of-logistics or 256-way softmax
-head, f32 or bf16 weights) against its plain twin at full width and at
-other widths (the ``widths`` phases: twice wn_moon's residual width,
+head, f32 or bf16 weights) against its plain twin at full width, on the
+plan's split and on the one-block instance (its fallback), and at other
+widths (the ``widths`` phases: twice wn_moon's residual width,
 timed, and served by ``WaveNetGenerator``; four times, past one block's
 shared memory, on the cluster instance (each stream split over 4
 blocks), timed and served in both weight types; R != D; TINY's widths and
@@ -90,7 +91,8 @@ are removed.  A ``tacotron``, a ``trained``, a ``tts``, a ``train``, a
 ``data``, a ``taco_train``, an ``attention`` and a ``mesh`` JSON line carry
 those phases' numbers, an ``eval`` line the evaluation commands' results
 and walls, and the ``kernels`` line, per variant, the widths held with
-their errors and the 2x-width times, and the four cluster variants at 4x
+their errors and the 2x-width times, and the one-block instance's
+launches, error and time (``one_block``), and the four cluster variants at 4x
 (blocks per stream, slots, bytes per block, launches of their serving
 path, error, time); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -113,6 +115,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "tacotron_wavenet_vocoder_korean_tpu_torch"
 TPU_KERNEL = "tacotron_wavenet_vocoder_korean_tpu/ops/wavenet_pallas.py:510"
+# The generation kernel's variant that serves wn_moon's widths in bf16 on
+# the card: the R = D = 32 instance split over a cluster (the card holds
+# the few streams a call here makes).
+SERVED = "mol-bfloat16-split"
 MELS = [os.path.join(REPO, "samples", "both_r2", f"{i}.mel.npy")
         for i in range(4)]
 CONFIG = os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz")
@@ -683,7 +689,7 @@ def tacotron_phases(dev, wn_cfg, gen, smi) -> dict:
         dt = time.perf_counter() - t0
         launches = dict(wavenet_generate.variant_launches)
         log(f"  launches on the text -> wav path: {launches}")
-        if launches != {"mol-bfloat16": 1}:
+        if launches != {SERVED: 1}:
             raise AssertionError("text -> wav did not launch the bf16 MoL "
                                  "kernel once")
         for x, w in zip(res, wavs):
@@ -892,7 +898,7 @@ def trained_phases(dev, gen_seeded, smi, tmp) -> dict:
         wav = gen.generate(mel_e2e, seed=0)
         dt = time.perf_counter() - t0
         launches["vocode"] = dict(wavenet_generate.variant_launches)
-        if launches["vocode"] != {"mol-bfloat16": 1}:
+        if launches["vocode"] != {SERVED: 1}:
             raise AssertionError(f"vocoding launched {launches['vocode']}")
         n = mel_e2e.shape[0] * hop
         if wav.shape != (n,) or not np.isfinite(wav).all() or (
@@ -932,7 +938,7 @@ def trained_phases(dev, gen_seeded, smi, tmp) -> dict:
         cli_wav = load_wav(wav_path, sr)
         log(f"  generate.py --load_path (default device): "
             f"{launches['cli']}, {cli_wav.shape[0]} samples")
-        if launches["cli"] != {"mol-bfloat16": 1} or cli_wav.shape != (
+        if launches["cli"] != {SERVED: 1} or cli_wav.shape != (
                 20 * hop,):
             raise AssertionError("the CLI did not vocode on the card")
 
@@ -987,7 +993,7 @@ def trained_phases(dev, gen_seeded, smi, tmp) -> dict:
         wav = gen.generate(res["mel"], seed=0)
         t2 = time.perf_counter()
         launches["text_to_wav"] = dict(wavenet_generate.variant_launches)
-        if launches["text_to_wav"] != {"mol-bfloat16": 1}:
+        if launches["text_to_wav"] != {SERVED: 1}:
             raise AssertionError(f"text -> wav launched "
                                  f"{launches['text_to_wav']}")
         trim = attention_trim_index(res["alignment"], int(lengths[0]), r)
@@ -1396,7 +1402,7 @@ def training_phases(dev, smi, tmp, data: str) -> dict:
         log(f"  served step {gen.step} (EMA, {gen.weight_dtype}): "
             f"{wav.shape[0]} samples in {serve_s:.2f}s, peak "
             f"{np.abs(wav).max():.3f}; kernel launches {launches}")
-        if (gen.step != int(state.step) or launches != {"mol-bfloat16": 1}
+        if (gen.step != int(state.step) or launches != {SERVED: 1}
                 or wav.shape != (TRAIN_SERVE_FRAMES * hop,)
                 or not np.isfinite(wav).all() or np.abs(wav).max() > 1):
             raise AssertionError("serving the saved run failed")
@@ -1800,7 +1806,7 @@ def data_phases(dev, smi, tmp, data: str, library_ms: float,
         if (wav.shape != (frames * hop,) or not np.isfinite(wav).all()
                 or np.abs(wav).max() > 1):
             raise AssertionError("the served wav is wrong")
-        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+        if dev.type == "cuda" and launches != {SERVED: 1}:
             raise AssertionError(f"generate launched {launches}")
         out["serve"] = {"wall_s": secs, "samples": int(wav.shape[0])}
         out["launches"] = launches
@@ -1971,7 +1977,7 @@ def eval_phases(dev, smi, tmp, dirs: list) -> dict:
         return x is not None and bool(np.isfinite(x))
 
     def counted(name: str, n: int) -> None:
-        want = {"mol-bfloat16": n} if dev.type == "cuda" else {}
+        want = {SERVED: n} if dev.type == "cuda" else {}
         require(launches[name] == want,
                 f"{name} launched {launches[name]}, want {want}")
 
@@ -2084,8 +2090,8 @@ def eval_phases(dev, smi, tmp, dirs: list) -> dict:
         require(all(v <= EVAL_DIAG_TOL for v in diff.values()),
                 f"wavenet_diagnose card vs CPU {diff}")
         out["wavenet_diagnose"] = dict(c, card_vs_cpu=diff)
-    out["launches"] = {"mol-bfloat16": sum(
-        x.get("mol-bfloat16", 0) for x in launches.values())}
+    out["launches"] = {SERVED: sum(
+        x.get(SERVED, 0) for x in launches.values())}
     return out
 
 
@@ -2254,7 +2260,7 @@ def taco_train_phases(dev, smi, tmp, dirs: list) -> dict:
         if not (np.isfinite(mel).all() and mel.ndim == 2 and len(wav)
                 and np.isfinite(wav).all() and np.abs(wav).max() <= 1):
             raise AssertionError("the served mel or wav is wrong")
-        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+        if dev.type == "cuda" and launches != {SERVED: 1}:
             raise AssertionError(f"tts launched {launches}")
         out["serve"] = {"wall_s": secs, "mel_frames": int(mel.shape[0])}
         out["launches"] = launches
@@ -2692,7 +2698,7 @@ def attention_phases(dev, smi, tmp, dirs: list) -> dict:
                    for m, w in zip(mels, wavs)):
             raise AssertionError("the simple run's served mel or wav is "
                                  "wrong")
-        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+        if dev.type == "cuda" and launches != {SERVED: 1}:
             raise AssertionError(f"tts launched {launches}")
         out["simple_cli"]["serve_wall_s"] = secs
         out["launches"] = launches
@@ -2749,7 +2755,7 @@ def tts_phases(dev, smi, tmp) -> dict:
         wall = time.perf_counter() - t0
         launches = dict(wavenet_generate.variant_launches)
         log(f"  launches: {launches}")
-        if launches != {"mol-bfloat16": 1}:
+        if launches != {SERVED: 1}:
             raise AssertionError("TTSPipeline.tts did not launch the bf16 "
                                  "MoL kernel once for 4 texts")
         for i, r in enumerate(res):
@@ -3337,7 +3343,7 @@ def mesh_phases(dev, smi, tmp, data: str, dirs: list) -> dict:
         text, secs = done["generate"]
         launches = json.loads(text.strip().splitlines()[-1])
         log(f"  rc 0 in {secs:.1f} s wall; launches {launches}")
-        if dev.type == "cuda" and launches != {"mol-bfloat16": 1}:
+        if dev.type == "cuda" and launches != {SERVED: 1}:
             raise AssertionError(f"generate launched {launches}")
         out["launches"] = launches
 
@@ -3428,7 +3434,8 @@ def widths_phases(dev, smi, cfg, mels) -> dict:
     def c_plan(*args):
         """The library's (blocks, slots, bytes per block)."""
         k, n = ctypes.c_int(), ctypes.c_int()
-        nbytes = lib.wavenet_gen_plan(*args, ctypes.byref(k), ctypes.byref(n))
+        nbytes = lib.wavenet_gen_plan(*args, 1, ctypes.byref(k),
+                                      ctypes.byref(n))
         return k.value, n.value, nbytes
 
     out = {}                 # variant -> list of widths held
@@ -3649,8 +3656,8 @@ def main() -> int:
         Upsampler)
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops import build
     from tacotron_wavenet_vocoder_korean_tpu_torch.ops.wavenet_gen import (
-        generate_bytes, generate_flops, generate_plain, kernel_variant,
-        pack_params, precompute_lc_proj, wavenet_generate)
+        _generate, generate_bytes, generate_flops, generate_plain,
+        kernel_variant, pack_params, precompute_lc_proj, wavenet_generate)
     from tacotron_wavenet_vocoder_korean_tpu_torch.synth.generator import (
         WaveNetGenerator)
 
@@ -3684,7 +3691,7 @@ def main() -> int:
     for p, c in ((params, w), (params_q, wq)):
         for dt in (f32, bf16):
             pk = pack_params(c, p, dt)
-            packs[kernel_variant(pk)] = pk
+            packs[kernel_variant(pk, 1)] = pk
     ups = {"mol": Upsampler(w).load_params(params).to(dev),
            "softmax": Upsampler(wq).load_params(params_q).to(dev)}
     mels = [np.load(p).astype(np.float32) for p in MELS]
@@ -3715,6 +3722,13 @@ def main() -> int:
 
     errors = {v: [] for v in packs}
     agreement = {}
+    # The one-block R = D = 32 instance, the split's fallback: on the same
+    # inputs, against the same twin results and bounds, its launches
+    # counted under the one-block names.
+    one_errors = {v: [] for v in packs}
+    one_agreement = {}
+    one_block = lambda pk, proj, **kw: _generate(pk, proj, blocks=1, **kw)
+    launched = dict(wavenet_generate.variant_launches)
     spans = {}   # variant -> (kernel ms, twin ms, steps) of one span
 
     def timed_pair(v, kernel, plain, steps):
@@ -3736,6 +3750,9 @@ def main() -> int:
         torch.cuda.synchronize()
         errors["mol-float32"].append(compare(
             f"(a) deterministic, teacher-forced {T}", k, p))
+        one_errors["mol-float32"].append(compare(
+            f"(a) one block, deterministic, teacher-forced {T}",
+            one_block(packed, proj, **kw), p))
 
         proj_b = proj[:, :256].contiguous()
         k = wavenet_generate(packed, proj_b, deterministic=True)
@@ -3744,6 +3761,9 @@ def main() -> int:
                 tol=FREE_RUN_TOL, max_share=0.0)
         if float(k.std()) == 0.0:
             raise AssertionError("(b) free-running output is constant")
+        compare("(b) one block, deterministic, free-running 256",
+                one_block(packed, proj_b, deterministic=True), p,
+                tol=FREE_RUN_TOL, max_share=0.0)
 
         noise = torch.rand(T, B, nr + 1, device=dev,
                            generator=torch.Generator(dev).manual_seed(2))
@@ -3753,6 +3773,10 @@ def main() -> int:
                            prime_len=T)
         errors["mol-float32"].append(compare(
             f"(c) stochastic, same noise, teacher-forced {T}", k, p))
+        one_errors["mol-float32"].append(compare(
+            f"(c) one block, stochastic, same noise, teacher-forced {T}",
+            one_block(packed, proj, noise=noise, primed=primed,
+                      prime_len=T), p))
 
         B, T = 8, 512
         proj = lc_proj_for("mol-float32", B, T)
@@ -3785,6 +3809,10 @@ def main() -> int:
         err, agree_a = compare_classes(
             f"(a) deterministic, teacher-forced {T}", k, p, CLASS_AGREE_F32)
         errors["softmax-float32"].append(err)
+        err, one_a = compare_classes(
+            f"(a) one block, deterministic, teacher-forced {T}",
+            one_block(packed, proj, **kw), p, CLASS_AGREE_F32)
+        one_errors["softmax-float32"].append(err)
 
         proj_b = proj[:, :256].contiguous()
         k = wavenet_generate(packed, proj_b, deterministic=True)
@@ -3792,6 +3820,8 @@ def main() -> int:
         compare_classes("(b) deterministic, free-running 256", k, p, 1.0)
         if len(torch.unique(k)) < 2:
             raise AssertionError("(b) free-running class stream is constant")
+        compare_classes("(b) one block, deterministic, free-running 256",
+                        one_block(packed, proj_b, deterministic=True), p, 1.0)
 
         noise = torch.rand(T, B, Q, device=dev,
                            generator=torch.Generator(dev).manual_seed(12))
@@ -3804,6 +3834,13 @@ def main() -> int:
             CLASS_AGREE_F32)
         errors["softmax-float32"].append(err)
         agreement["softmax-float32"] = min(agree_a, agree_c)
+        err, one_c = compare_classes(
+            f"(c) one block, stochastic T=0.7, same noise, teacher-forced "
+            f"{T}", one_block(packed, proj, noise=noise, primed=primed,
+                              prime_len=T, temperature=0.7), p,
+            CLASS_AGREE_F32)
+        one_errors["softmax-float32"].append(err)
+        one_agreement["softmax-float32"] = min(one_a, one_c)
 
         B, T = 8, 512
         proj = lc_proj_for("softmax-float32", B, T)
@@ -3844,6 +3881,13 @@ def main() -> int:
             errors[f"{head}-bfloat16"].append(err)
             if agree is not None:
                 agreement[f"{head}-bfloat16"] = agree
+            err, agree = compare_bf16(
+                f"{head}, one block, deterministic, teacher-forced {T}",
+                run(one_block, "bfloat16"), t16, run(one_block, "float32"),
+                classes=head == "softmax")
+            one_errors[f"{head}-bfloat16"].append(err)
+            if agree is not None:
+                one_agreement[f"{head}-bfloat16"] = agree
             a, b = k16, k32
             if head == "softmax":
                 log(f"  softmax drift, bf16 kernel vs f32 kernel: same class "
@@ -3857,6 +3901,9 @@ def main() -> int:
                 f"{corr:.5f}, mean relative drift {rel:.5f} (printed, not "
                 "bounded)")
         del proj, signals, primed, k16, t16, k32
+    one_launches = {v: wavenet_generate.variant_launches[v]
+                    - launched.get(v, 0) for v in packs}
+    log(f"  one-block launches: {one_launches}")
 
     widths = widths_phases(dev, smi, cfg, mels)
 
@@ -3972,6 +4019,9 @@ def main() -> int:
             gen_t = torch.Generator(dev).manual_seed(6)
             ms = cuda_ms(lambda: wavenet_generate(
                 packed, proj, generator=gen_t, temperature=temp))
+            gen_t = torch.Generator(dev).manual_seed(6)
+            one_ms = cuda_ms(lambda: one_block(
+                packed, proj, generator=gen_t, temperature=temp))
             del proj
             # The twin launches hundreds of small ops per sample: it and
             # the kernel were timed on the comparison phases' span.
@@ -3981,13 +4031,15 @@ def main() -> int:
             t_ops = flops / PEAK_FLOPS_S[packed["w_tap"].dtype] * 1e3
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             timing[v] = dict(ms=ms, plain_ms=plain_ms, span_ms=span_ms,
-                             steps=steps, t_ops=t_ops, t_bytes=t_bytes)
+                             steps=steps, t_ops=t_ops, t_bytes=t_bytes,
+                             one_ms=one_ms)
             log(f"  wavenet_generate[{v}] B={B} T={T}: {ms:.1f} ms "
                 f"({ms / T * 1e3:.1f} us per step, {B * T / ms * 1e3:.0f} "
                 f"samples/s aggregate); bound {max(t_ops, t_bytes):.2f} ms "
                 f"({flops:.3e} FLOP, {nbytes:.3e} B); {steps} steps "
                 f"teacher-forced: kernel {span_ms:.2f} ms, plain twin "
-                f"{plain_ms:.1f} ms [{smi}]")
+                f"{plain_ms:.1f} ms; one block {one_ms:.1f} ms "
+                f"({one_ms / T * 1e3:.1f} us per step) [{smi}]")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4012,14 +4064,17 @@ def main() -> int:
 
     kernels = []
     for v, t in timing.items():
-        if main_launches.get(v, 0) < 1:
-            raise AssertionError(f"the main path did not launch {v}")
+        # v names the head and type; the launches count the plan's variant
+        # (the split at these widths on this card).
+        served = kernel_variant(packs[v])
+        if main_launches.get(served, 0) < 1:
+            raise AssertionError(f"the main path did not launch {served}")
         entry = {
-            "name": f"wavenet_generate[{v}]",
+            "name": f"wavenet_generate[{served}]",
             "route": "cuda",
             "source": f"{PKG}/csrc/wavenet_gen.cu",
             "replaces": TPU_KERNEL,
-            "launches": main_launches[v],
+            "launches": main_launches[served],
             "max_abs_err": max(errors[v]),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -4028,31 +4083,42 @@ def main() -> int:
             "bound_ms": max(t["t_ops"], t["t_bytes"]),
             "bound_by": "operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
             "library_ms": None,
-            "launches_text_to_wav": text_launches.get(v, 0),
-            "launches_tts": tts_launches.get(v, 0),
+            "launches_text_to_wav": text_launches.get(served, 0),
+            "launches_tts": tts_launches.get(served, 0),
             "timing_batch": TIME_B,
             "timing_steps": TIME_T,
             "us_per_step": t["ms"] / TIME_T * 1e3,
         }
         if v in agreement:
             entry["class_agreement"] = agreement[v]
+        if one_launches[v] < 1:
+            raise AssertionError(f"the one-block instance {v} did not run")
+        entry["one_block"] = {
+            "name": f"wavenet_generate[{v}]",
+            "launches": one_launches[v],
+            "max_abs_err": max(one_errors[v]),
+            "ms": t["one_ms"],
+            "us_per_step": t["one_ms"] / TIME_T * 1e3,
+        }
+        if v in one_agreement:
+            entry["one_block"]["class_agreement"] = one_agreement[v]
         entry["widths"] = widths[v]
-        if v in train["serve"]["launches"]:
-            entry["launches_train_serve"] = train["serve"]["launches"][v]
-        if v in cli_launches:
-            entry["launches_train_cli"] = cli_launches[v]
-        if v in taco_cli_launches:
-            entry["launches_tacotron_train_cli"] = taco_cli_launches[v]
-        if v in simple_cli_launches:
-            entry["launches_simple_cli"] = simple_cli_launches[v]
-        if v in mesh_cli_launches:
-            entry["launches_mesh_cli"] = mesh_cli_launches[v]
-        if v in eval_launches:
-            entry["launches_eval"] = eval_launches[v]
+        if served in train["serve"]["launches"]:
+            entry["launches_train_serve"] = train["serve"]["launches"][served]
+        if served in cli_launches:
+            entry["launches_train_cli"] = cli_launches[served]
+        if served in taco_cli_launches:
+            entry["launches_tacotron_train_cli"] = taco_cli_launches[served]
+        if served in simple_cli_launches:
+            entry["launches_simple_cli"] = simple_cli_launches[served]
+        if served in mesh_cli_launches:
+            entry["launches_mesh_cli"] = mesh_cli_launches[served]
+        if served in eval_launches:
+            entry["launches_eval"] = eval_launches[served]
         if f"{v}_max_abs_err" in trained_errors:
             entry["trained_max_abs_err"] = trained_errors[f"{v}_max_abs_err"]
             entry["launches_trained"] = sum(
-                x.get(v, 0) for x in trained_launches.values())
+                x.get(served, 0) for x in trained_launches.values())
         kernels.append(entry)
     # The cluster instance (4x wn_moon's residual width): its launches are
     # the serving requests' of the widths phases, counted from 0 there.

@@ -1,11 +1,29 @@
 """Where the generation kernel's step goes: time builds of
 ``csrc/wavenet_gen.cu`` with one part removed, and the previous step design
 beside it, f32 and bf16 weights, MoL head, full ``wn_moon`` width with
-seeded weights; or, with ``--clusters``, the cluster instance's blocks per
-stream.
+seeded weights, one block per stream; with ``--split``, the split's
+blocks per stream; with ``--clusters``, the cluster instance's.
 
     python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen
+    python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen --split
     python -m tacotron_wavenet_vocoder_korean_tpu_torch.ablate_gen --clusters
+
+``--split`` times wn_moon (R = D = 32, 50 layers, MoL head) at B = 1 and
+8 streams, bf16 and f32, on one block per stream and on the split at
+each of 2, 3, 4, 5 and 8 blocks per stream (``kernel_plan``'s is
+marked), and in bf16 three builds of the split with one part removed:
+
+  split_no_peer_wait  block 0 does not wait for the peers' post1 partials;
+                      the chain's pushes and the peers' partials are
+                      plain remote stores, and the peers wait for no layer
+                      (they run on their own): what the wait after the
+                      chain costs
+  split_no_push       the chain pushes nothing, the peers send nothing and
+                      wait for nothing, block 0 waits for nothing: block
+                      0's step alone (against split_no_peer_wait, what
+                      the pushes cost the chain)
+  split_post1_global  the peers read their rows of post1 from L2, not from
+                      shared memory
 
 ``--clusters`` times wn_moon's architecture at 4x its residual width (R =
 D = 128, 50 layers: over one block's shared memory) at every cluster size
@@ -71,8 +89,9 @@ PARENT = os.path.join(build.CSRC_DIR, "wavenet_gen_block.cu")
 
 _SKIP = ("      skip_partial<WT>(gat, w_skip, ready, t & 1, L, D, S, part, "
          "skip_i,\n                       lane);\n")
-_SKIP_SUM = "      for (int j = 0; j < n_groups; ++j) v += part[j * S + s];\n"
-_POST1 = "    dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
+_SKIP_SUM = ("        for (int j = 0; j < n_groups; ++j) v += part[j * S + s];"
+             "\n")
+_POST1 = "      dense_relu(z, post1, p.b1, S, S, z1, part, tid);\n"
 _PROLOGUE = "  if (tid == PRODUCER)\n    for (; g_load < NSLOT"
 _CHAIN = "    if (warp == 0) {\n      if constexpr (FIXED)\n"
 _PRODUCER = "    } else if (tid == PRODUCER) {\n"
@@ -84,8 +103,7 @@ _RES = "      Chunk<WT>::one(wr + k, gat + l * D + k, ar);\n"
 _SKIP_U = "  constexpr int U = sizeof(WT) == 2 ? 8 : 16;\n"
 _SKIP_WAIT = "    mbar_wait(&ready[l0], parity);\n    int l1 = l0 + 1;\n"
 _NSK = "constexpr int NSK = 32 * (NT / 32 - NT / 128 - 1);\n"
-_FIXED = ("  if (p.R == FW && p.D == FW && p.Dlc == FW && p.nslot == "
-          "nslot<WT>())\n")
+_FIXED = "  if (fixed_widths(p.L, p.R, p.Dlc, p.S, p.C, p.W, wsize)) {\n"
 _XSEND = ("          st_async(mapa(xch_a + 4u * (mine + r), q), part, "
           "mapa(bar, q));\n")
 _XEXPECT = "      mbar_expect_tx(&xbar[l], 4u * (k - 1) * R);\n"
@@ -98,9 +116,9 @@ _SKIP_I = ("  const int skip_i = (warp > 1 && warp % 4 != 0)\n"
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "base": (SOURCE, []),
     "no_skip": (SOURCE, [(_SKIP, ""), (_SKIP_SUM, "")]),
-    "no_post1": (SOURCE, [(_POST1, "    for (int s = tid; s < S; s += NT) "
+    "no_post1": (SOURCE, [(_POST1, "      for (int s = tid; s < S; s += NT) "
                                    "z1[s] = z[s];\n"
-                                   "    __syncthreads();\n")]),
+                                   "      __syncthreads();\n")]),
     "no_chain": (SOURCE, [
         (_PROLOGUE, "  if (false)\n    for (; g_load < NSLOT"),
         (_CHAIN, "    if (warp == 0) {\n"
@@ -123,8 +141,41 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         (_NSK, "constexpr int NSK = 32 * (NT / 32 - 2);\n"),
         (_SKIP_I, "  const int skip_i = warp > 1 ? (warp - 2) * 32 + lane "
                   ": -1;\n")]),
-    "any_width": (SOURCE, [(_FIXED, "  if (false)\n")]),
+    "any_width": (SOURCE, [(_FIXED, "  if (false) {\n")]),
     "parent": (PARENT, []),
+}
+# The split's (``--split``).
+_PUSH = ("      st_async4(mapa(gpush + 4u * (l * FW + 4 * (i & 7)), 1 + i / 8), "
+         "g4,\n                mapa(xbar + 8u * l, 1 + i / 8));\n")
+_PEER_EXPECT = ("    if (tid == 0)\n      for (int l = 0; l < L; ++l) "
+                "mbar_expect_tx(&xbar[l], 4u * D);\n")
+_PEER_WAIT = "      mbar_wait_cluster(&xbar[l], par);\n"
+_PEER_SEND = ("      if ((i4 & 3) == 0 && i4 < S) st_async4(pdst + 16u * i, y, "
+              "pbar);\n")
+_PARTIALS_WAIT = ("      if (tid == 0) mbar_expect_tx(pbar, 4u * npeer * S);\n"
+                  "      mbar_wait_cluster(pbar, t & 1);\n")
+_RESIDENT = "  return q.ok ? q : split_layout(L, S, C, W, k, wsize, false);\n"
+# A plain 16-byte store into a peer's shared memory, for the ablations.
+_ST4 = "__device__ __forceinline__ void st_async4("
+_ST4_PLAIN = ("__device__ __forceinline__ void st_cluster4(uint32_t a, float4 v) "
+              "{\n  asm volatile(\"st.shared::cluster.v4.f32 [%0], {%1, %2, "
+              "%3, %4};\" :: \"r\"(a), \"f\"(v.x), \"f\"(v.y), \"f\"(v.z), "
+              "\"f\"(v.w) : \"memory\");\n}\n" + _ST4)
+SPLIT_VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
+    "split_no_peer_wait": (SOURCE, [
+        (_ST4, _ST4_PLAIN),
+        (_PUSH, "      st_cluster4(mapa(gpush + 4u * (l * FW + 4 * (i & 7)), "
+                "1 + i / 8), g4);\n"),
+        (_PEER_EXPECT, ""), (_PEER_WAIT, ""),
+        (_PEER_SEND, "      if ((i4 & 3) == 0 && i4 < S) st_cluster4(pdst + 16u "
+                     "* i, y);\n"),
+        (_PARTIALS_WAIT, "")]),
+    "split_no_push": (SOURCE, [
+        (_PUSH, "      ;\n"), (_PEER_EXPECT, ""), (_PEER_WAIT, ""),
+        (_PEER_SEND, "      if (i4 == S) red[0] = y.x;\n"),
+        (_PARTIALS_WAIT, "")]),
+    "split_post1_global": (SOURCE, [
+        (_RESIDENT, "  return split_layout(L, S, C, W, k, wsize, false);\n")]),
 }
 # The cluster instance's (``--clusters``).
 CLUSTER_VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
@@ -136,7 +187,7 @@ CLUSTER_VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
 
 
 def variant_source(name: str) -> str:
-    path, subs = {**VARIANTS, **CLUSTER_VARIANTS}[name]
+    path, subs = {**VARIANTS, **CLUSTER_VARIANTS, **SPLIT_VARIANTS}[name]
     src = open(path, encoding="utf-8").read()
     for old, new in subs:
         if src.count(old) != 1:
@@ -254,14 +305,66 @@ def clusters(cfg, dev, smi: str, B: int, T: int, reps: int,
             del proj
 
 
+# The split's sizes ``--split`` times.
+SPLIT_SWEEP = (2, 3, 4, 5, 6, 7, 8)
+
+
+def split_sweep(cfg, dev, smi: str, T: int, reps: int, tmp: str) -> None:
+    """The split's sweep (``--split``): wn_moon at B = 1 and 8, both weight
+    types, one block and each of ``SPLIT_SWEEP`` blocks per stream, and the
+    split's ablated builds in bf16."""
+    builds = {"base": G._launcher()}
+    builds.update({name: _bind(lib) for name, lib in build_all(
+        tmp, tuple(SPLIT_VARIANTS)).items()})
+    w = cfg.wavenet
+    params = seeded_params(w, 0, dev)
+    upsampler = Upsampler(w).load_params(params).to(dev)
+    print(f"card: {smi}; T={T}, MoL head, us per step", flush=True)
+    for B in (1, 8):
+        with torch.no_grad():
+            lc = upsampler(torch.from_numpy(_mels(cfg, B, T)).to(dev))[:, :T]
+        for dt in (torch.bfloat16, torch.float32):
+            pk = G.pack_params(w, params, dt)
+            with torch.no_grad():
+                proj = G.precompute_lc_proj(pk, lc)
+            L, _, _, S, C, W = dims = G.kernel_widths(pk)
+            bf16 = dt == torch.bfloat16
+            plan = G.kernel_plan(*dims, dt, B, lambda k: G._card_clusters(
+                L, S, C, W, k, bf16))[0]
+            for k in (1,) + SPLIT_SWEEP:
+                nbytes = (G.kernel_smem(*dims, dt)[0] if k == 1 else
+                          G._split_smem(L, S, C, W, k, dt))
+                held = "" if k == 1 else (
+                    f" held={G._card_clusters(L, S, C, W, k, bf16)}")
+                for build, fn in builds.items():
+                    if build != "base" and (k == 1 or not bf16):
+                        continue
+                    G._launcher = lambda fn=fn: fn
+                    gen = torch.Generator(dev).manual_seed(0)
+                    G._generate(pk, proj[:, :64].contiguous(), generator=gen,
+                                blocks=k)                   # warm-up
+                    times = [_ms(lambda: G._generate(
+                        pk, proj, generator=gen, blocks=k))
+                        for _ in range(reps)]
+                    print(f"B={B} {str(dt)[6:]:8s} k={k} smem={nbytes} B"
+                          f"{held}{' (plan)' if k == plan else ''} {build}: "
+                          + " ".join(f"{t / T * 1e3:.2f}" for t in times),
+                          flush=True)
+                G._launcher = lambda fn=builds["base"]: fn
+            del proj
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=None,
-                   help="steps per launch (8192; 2048 with --clusters)")
+                   help="steps per launch (8192; 4096 with --split, 2048 "
+                        "with --clusters)")
     p.add_argument("--streams", type=int, default=4)
     p.add_argument("--reps", type=int, default=2)
     p.add_argument("--clusters", action="store_true",
                    help="time the cluster instance's blocks per stream")
+    p.add_argument("--split", action="store_true",
+                   help="time the split's blocks per stream")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gen: no CUDA device")
@@ -270,12 +373,16 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     cfg = load_config(os.path.join(REPO, "artifacts", "wn_moon.ckpt.tar.gz"))
-    if args.clusters:
+    if args.clusters or args.split:
         kernel_launcher = G._launcher
         try:
             with tempfile.TemporaryDirectory() as tmp:
-                clusters(cfg, dev, smi, args.streams, args.steps or 2048,
-                         args.reps, tmp)
+                if args.split:
+                    split_sweep(cfg, dev, smi, args.steps or 4096,
+                                args.reps, tmp)
+                else:
+                    clusters(cfg, dev, smi, args.streams,
+                             args.steps or 2048, args.reps, tmp)
         finally:
             G._launcher = kernel_launcher
         return
@@ -301,10 +408,10 @@ def main(argv=None) -> None:
                     row = []
                     for dt, pk in packs.items():
                         gen = torch.Generator(dev).manual_seed(0)
-                        G.wavenet_generate(pk, projs[dt][:, :64].contiguous(),
-                                           generator=gen)   # warm-up
-                        t = _ms(lambda: G.wavenet_generate(pk, projs[dt],
-                                                           generator=gen))
+                        G._generate(pk, projs[dt][:, :64].contiguous(),
+                                    generator=gen, blocks=1)   # warm-up
+                        t = _ms(lambda: G._generate(pk, projs[dt],
+                                                    generator=gen, blocks=1))
                         row.append(f"{str(dt)[6:]} {t / T * 1e3:6.1f}")
                     print(f"rep {rep} {name:12s} " + "  ".join(row),
                           flush=True)

@@ -37,8 +37,9 @@
 // zero post rows.  The lc projection keeps the caller's D, and the kernel
 // stages each row into the padded layout.  Three instances per weight type:
 // R = D = 32 with the full weight ring (wn_moon's widths, the chain's
-// loops unrolled at compile time and h[r] in a register), any other width
-// that fits one block, read at run time, and the cluster instance below.
+// loops unrolled at compile time and h[r] in a register), one block or
+// split over a cluster (the split, below), any other width that fits one
+// block, read at run time, and the cluster instance below.
 //
 // Cluster instance (widths over one block's shared memory, e.g. R = D =
 // 128 at 50 layers).  Each stream runs on a thread-block cluster of k = 2,
@@ -64,11 +65,12 @@
 // noise, from today's Philox subsequences) and stores the sample into
 // every block's shared memory before the next cluster barrier.
 //
-// Design.  One thread block of 16 warps per stream (B <= 8 in practice),
-// persistent: it loops over all T samples itself, because blocks run in no
-// order and nothing carries over between them.  A step stages its history
-// rows and lc row and runs the front conv; then three roles run at once,
-// with no block-wide barrier until all L layers are done:
+// Design.  One thread block of 16 warps per stream (a cluster of them in
+// the split), persistent: it loops over all T samples itself, because
+// blocks run in no order and nothing carries over between them.  A
+// step stages its history rows and lc row and runs the front conv; then
+// three roles run at once, with no block-wide barrier until all L layers
+// are done:
 // - the chain warp (warp 0) runs the L gated layers alone: lane j owns
 //   gate channels j, j + 32, ... (their filter and gate rows over the 2R
 //   inputs, tanh * sigmoid in its own registers); after a __syncwarp lane r
@@ -83,40 +85,73 @@
 //   wraps across steps, so the next step's first layers load during this
 //   step's tail.  NSLOT is as many slots as fit, up to 8 (bf16) or 4 (f32);
 //   a single slot is enough to be correct;
-// - the skip warps (all but warp 0, warp 1 and the other warps of warp 0's
-//   scheduler) accumulate the skip product from each layer's gated output
-//   as the chain publishes it (one mbarrier per layer), in partial sums.
-// A block-wide barrier then hands the skip sums to relu, post1, post2 and
-// the head.  Shared memory holds the weight ring (NSLOT slots of 5RD
-// weights: 80 KB at wn_moon's widths), the window, h, the history rows, lc
-// row, gated outputs, skip/post buffers, logits and partial sums (L(3R +
-// 3D) + 2R + 2S + C + W + 4096 floats: about 55 KB for wn_moon).
-// smem_layout computes it; widths whose layout exceeds the 232,448 bytes a
-// block may use even with one slot take the cluster instance, and those
-// that exceed it even split over 8 blocks are refused (wavenet_gen_plan
-// and wavenet_gen_smem_bytes report the bytes, ops/wavenet_gen.py mirrors
-// them).  Activations are
-// rounded to the weight type once, where they are stored.  The ring
-// histories (sum(d)*R f32 per stream, ~655 KB for wn_moon) live in a
-// zeroed global scratch; the weights (~5.4 MB in f32 for wn_moon, half
-// that in bf16; the softmax head adds a [256, 512] post2) stay resident in
-// the 50 MB L2.
+// - the skip product [L*D] @ w_skip [L*D, S], then post1: 1.6 MB and 0.5 MB
+//   of weights a step at wn_moon's widths in bf16, twice that in f32.  The
+//   R = D = 32 instance moves them to a cluster's peers when the card holds
+//   the clusters (the split, below); otherwise the
+//   skip warps of the same block (all but warp 0, warp 1 and the other
+//   warps of warp 0's scheduler) take each layer's gated output as the
+//   chain publishes it (one mbarrier per layer), in partial sums, and all
+//   warps run post1 after a block-wide barrier.
+// Then relu, post2 and the head.  Shared memory holds the weight ring
+// (NSLOT slots of 5RD weights: 80 KB at wn_moon's widths), the window, h,
+// the history rows, lc row, gated outputs, skip/post buffers, logits and
+// partial sums (L(3R + 3D) + 2R + 2S + C + W + 4096 floats: about 55 KB
+// for wn_moon).  smem_layout computes it; widths whose layout exceeds the
+// 232,448 bytes a block may use even with one slot take the cluster
+// instance, and those that exceed it even split over 8 blocks are refused
+// (wavenet_gen_plan and wavenet_gen_smem_bytes report the bytes,
+// ops/wavenet_gen.py mirrors them).  Activations are rounded to the weight
+// type once, where they are stored.  The ring histories (sum(d)*R f32 per
+// stream, ~655 KB for wn_moon) live in a zeroed global scratch; the weights
+// (~5.4 MB in f32 for wn_moon, half that in bf16; the softmax head adds a
+// [256, 512] post2) stay resident in the 50 MB L2.
+//
+// The split (R = D = 32 instance; wavenet_gen_plan takes it whenever the
+// card holds B clusters of k = SPLIT_SIZE blocks at once, else one block a
+// stream).  Each stream runs on a cluster of k blocks, and the two weight streams
+// that do not lie on the sample's dependency path leave the chain's SM:
+// - block 0 runs everything on that path: staging, the front conv, the
+//   chain warp and its producer, then the sum of the peers' post1
+//   partials with b1 and relu, post2, the head, the Philox noise and the
+//   window shift.  It runs no skip product and no post1 rows;
+// - as the chain warp publishes layer l's gated values (ready[l]), a
+//   pusher warp on another scheduler sends them to every peer: st.async, 16
+//   bytes a lane, into the peer's gated buffer (one per step parity),
+//   completing the bytes on the peer's layer-l mbarrier;
+// - peer c (1 ... k-1, split_peer) owns a disjoint slice of S's chunks of
+//   8 columns: it accumulates the skip product of its columns over all L*D
+//   rows as the layers land (only its columns of w_skip stream into its
+//   SM), adds skip_bias and relu to its own whole sums, multiplies them by
+//   its rows of post1 (held in its shared memory when they fit) and
+//   pushes the partial [S] to block 0, again by st.async;
+// - block 0 waits once a step, after the chain, for the k - 1 partials,
+//   and adds them in the fixed order c = 1 ... k-1.
+// The push is one way: the chain never waits on a peer inside the L
+// layers and makes no remote store, where the cluster instance's
+// exchange (a residual round trip each layer) costs ~0.8 us a layer.  No
+// push can overwrite values a peer still reads: block 0 starts step t + 1
+// only once every peer has sent step t's partial, which each sends after
+// its last read of step t's gated values.
 //
 // What bounds it on this card: the chain is a serial latency chain of L =
 // 50 dependent layers, one warp's instruction latency per layer (its
 // shared loads, multiply-adds, tanh and exp, two __syncwarp), ~0.5 us a
-// layer on an H100 at R = D = 32, and it grows with R * D / 32 per lane;
-// and the skip product's weights (1.6 MB a step in bf16, 3.2 MB in f32, for
-// wn_moon) stream from L2 into one SM, at a rate set by the loads each
-// skip thread keeps in flight.  The two share the SM's memory pipe: run
-// together they take longer than either alone.  The card's arithmetic and
-// memory rates are far from the limit.  Later versions would split each
-// stream's weights across a thread-block cluster's shared memory (which
-// also lifts the width ceiling), serve all streams from one weight read,
-// and use warp-level MMA.  The cluster instance does the first of these
-// for widths past one block; at R = D = 128 each block then streams 1/k
-// of the layer weights, and the chain pays one exchange round trip per
-// layer.
+// layer on an H100 at R = D = 32, and it grows with R * D / 32 per lane.
+// In one block the skip product's weights stream from L2 into the chain's
+// SM, at a rate set by the loads each skip thread keeps in flight, and
+// share its memory pipe: run together the two take longer than either
+// alone, and post1 streams after the chain.  The split takes both streams
+// off that SM, so the chain, the producer's ring and block 0's serial
+// tail (post2, the head, staging) set the step; the peers' skip rows keep
+// pace with the chain and their post1 rows add one short wait after it.
+// The card's arithmetic and memory rates are far from the limit.  Later
+// versions would take the old tap's half of each layer's tap product off
+// the chain (its input is known before the step), serve all streams from
+// one weight read, and use warp-level MMA.  The cluster instance splits
+// the gate channels for widths past one block; at R = D = 128 each block
+// then streams 1/k of the layer weights, and the chain pays one exchange
+// round trip per layer.
 //
 // Noise: counter-based Philox (curand_kernel.h), seeded by the wrapper from
 // a torch.Generator, one subsequence per (stream, lane) of warp 0; or, for
@@ -134,6 +169,7 @@ namespace {
 constexpr int FW = 32;     // R = D of the specialised instance
 constexpr int NT = 512;    // threads: 16 warps
 constexpr int PRODUCER = 32;  // the thread that issues the weight copies
+constexpr int PUSHER = 2;     // the split's warp that feeds the peers
 // Skip warps: every warp but the chain warp, the producer's and the other
 // warps of the chain warp's scheduler (warp w issues on scheduler w mod 4),
 // so the chain has its scheduler to itself.
@@ -226,6 +262,65 @@ inline int plan(int L, int R, int D, int S, int C, int W, int wsize,
   *blocks = best;
   *slots = best_n;
   return (int)total;
+}
+
+// The R = D = 32 instance takes the caller's widths: R padded to 32, D 32
+// and the full weight ring in one block (S padded).
+inline bool fixed_widths(int L, int R, int D, int S, int C, int W,
+                         int wsize) {
+  return R == FW && D == FW &&
+         fit_slots(L, FW, FW, S, C, W, wsize) == max_slots(wsize);
+}
+
+// The split's blocks per stream: the fastest of 2 to 8 on an H100 at B = 1
+// and 8 (PERF.md); the card holds 15 such clusters.
+constexpr int SPLIT_SIZE = 8;
+constexpr int SPLIT_ROWS = 8;  // most skip rows of a layer a peer thread takes
+
+// The split's shared memory at S (padded), k blocks a stream.  Every block
+// lays out alike from offset 0: the peers' layer mbarriers [L], block 0's
+// partials mbarrier (pbar), the peers' gated values [2][L*32] (gbuf, by
+// step parity), block 0's partial sums [k-1][S] (pbuf) and its b1 [S]
+// (b1s).  From `body` on, block 0 has smem_layout's R = D = 32 layout, and
+// a peer its rows of post1 [sc][S] (when `resident`), its skip sums z [sc],
+// its skip biases [sc] (right after z) and its row groups' sums [8 * NT]
+// (red).  The biases are read after the waits, so they are held here, not
+// in L2.  sc is the most columns a peer takes: S's chunks of 8 dealt over
+// k - 1 peers.  `ok`: every peer takes a chunk, a peer thread's rows of a
+// layer fit SPLIT_ROWS, and the bytes fit a block.
+struct Split {
+  unsigned pbar, gbuf, pbuf, b1s, body, z, red, total;
+  int sc;
+  bool resident, ok;
+};
+__host__ __device__ inline Split split_layout(int L, int S, int C, int W,
+                                              int k, int wsize,
+                                              bool resident) {
+  Split q;
+  q.pbar = 8u * L;
+  q.gbuf = (q.pbar + 8u + 15u) & ~15u;
+  q.pbuf = q.gbuf + 4u * 2 * L * FW;
+  q.b1s = q.pbuf + 4u * (k - 1) * S;
+  q.body = (q.b1s + 4u * S + 127u) & ~127u;
+  q.sc = k > 1 ? 8 * ((S / 8 + k - 2) / (k - 1)) : S;
+  q.resident = resident;
+  q.z = q.body + (resident ? (unsigned)(q.sc * S * wsize) : 0u);
+  q.red = q.z + 8u * q.sc;
+  const unsigned first =
+      q.body +
+      smem_layout(L, FW, FW, S, C, W, max_slots(wsize), wsize).total;
+  const unsigned peer = q.red + 4u * 8 * NT;
+  q.total = first > peer ? first : peer;
+  const int items = q.sc / (16 / wsize);  // a peer's skip items per row
+  q.ok = k >= 2 && k <= MAX_CLUSTER && S / 8 >= k - 1 &&
+         FW * items <= SPLIT_ROWS * NT && q.total <= (unsigned)SMEM_LIMIT;
+  return q;
+}
+// The split's layout: post1's rows resident when they fit.
+__host__ __device__ inline Split split_plan(int L, int S, int C, int W, int k,
+                                            int wsize) {
+  const Split q = split_layout(L, S, C, W, k, wsize, true);
+  return q.ok ? q : split_layout(L, S, C, W, k, wsize, false);
 }
 
 // R, D and S are the padded widths; lc_proj keeps the caller's D (Dlc).
@@ -337,8 +432,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // Distributed shared memory of a cluster: the shared::cluster address of
 // this block's shared::cta address `a` in the block of rank `rank`, f32
-// stores and loads there, an asynchronous store that completes its 4 bytes
-// on a peer's mbarrier (no fence: the peer's phase completes when all the
+// stores and loads there, asynchronous stores that complete their 4 or 16
+// bytes on a peer's mbarrier (no fence: the peer's phase completes when all the
 // bytes it expects have landed), an acquire wait (cluster scope) on this
 // block's own mbarrier, and the cluster-wide barrier.
 __device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
@@ -361,6 +456,13 @@ __device__ __forceinline__ void st_async(uint32_t a, float v, uint32_t bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
                " [%0], %1, [%2];\n"
                :: "r"(a), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async4(uint32_t a, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+               " [%0], {%1, %2, %3, %4}, [%5];\n"
+               :: "r"(a), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+                  "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)),
+                  "r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
                                                   unsigned parity) {
@@ -724,6 +826,28 @@ __device__ __forceinline__ void run_chain(
   }
 }
 
+// The split's pusher warp: as the chain publishes layer l (ready[l], phase
+// `parity`), lane i sends gated values [4 (i mod 8), + 4) to peer 1 + i / 8,
+// 16 bytes a st.async into the peer's gated buffer `gpush` (this step's, a
+// shared::cta address the peers lay out alike) at [l], completing on the
+// peer's mbarrier `xbar` + l.  The chain sends nothing itself: on an H100
+// 4-byte stores from the chain (one a lane and peer) made the step 1.3-1.7
+// us longer for each peer, and 16-byte ones after its residual's loads 4.5
+// us for 4 peers.
+__device__ __forceinline__ void push_layers(const float* gat, uint64_t* ready,
+                                            unsigned parity, int L,
+                                            int npeer, uint32_t gpush,
+                                            uint32_t xbar, int lane) {
+  for (int l = 0; l < L; ++l) {
+    mbar_wait(&ready[l], parity);
+    const float4 g4 =
+        *reinterpret_cast<const float4*>(gat + l * FW + 4 * (lane & 7));
+    for (int i = lane; i < 8 * npeer; i += 32)
+      st_async4(mapa(gpush + 4u * (l * FW + 4 * (i & 7)), 1 + i / 8), g4,
+                mapa(xbar + 8u * l, 1 + i / 8));
+  }
+}
+
 // The chain at any (padded) width: lane owns gate channels j = lane + 32m
 // and residual rows r = lane + 32m; h stays in shared memory (f32).  The
 // chunk rotation starts each row at its own index modulo the row's chunk
@@ -894,18 +1018,172 @@ __device__ __forceinline__ void advance(int& s, unsigned& ph, int& l,
   if (++s == nslot) { s = 0; ph ^= 1; }
 }
 
-// RF = FW: R = D = 32 with nslot<WT>() slots; RF = 0: the widths and the
-// slot count of Params.
-template <typename WT, int RF>
+// Peer `rank` (1 ... k-1) of a stream split over a cluster of k blocks (the
+// R = D = 32 instance; `q` its layout).  It owns the skip columns [s0, s1),
+// S's chunks of 8 dealt out in rank order, and post1's rows of the same
+// indices.  Each step thread 0 arrives on every layer's mbarrier xbar[l],
+// expecting the 128 bytes the chain pushes; each skip item (V columns, row
+// group h: rows h, h + H, ... of each layer) waits for layer l, multiply-
+// adds that layer's rows, whose weights it loaded while the layer was on
+// its way, and loads the next layer's.  After the last layer the row groups
+// are added in order, with skip_bias and relu, and the peer's rows of post1
+// multiply them in H2 row groups, added in order; the partial [S] goes to
+// block 0's pbuf row rank - 1, 16 bytes a st.async, completing on block 0's
+// pbar.  No peer reads block 0's memory.
+template <typename WT>
+__device__ __forceinline__ void split_peer(const Params& p,
+                                           unsigned char* smem,
+                                           const Split& q, int rank) {
+  constexpr int D = FW, V = skip_cols<WT>();
+  const int tid = threadIdx.x, L = p.L, S = p.S, k = p.k;
+  const int n8 = S / 8;
+  const int s0 = 8 * ((rank - 1) * n8 / (k - 1));
+  const int sc = 8 * (rank * n8 / (k - 1)) - s0;
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem);  // [L]
+  const float* gbuf = reinterpret_cast<const float*>(smem + q.gbuf);
+  WT* rows = reinterpret_cast<WT*>(smem + q.body);     // [sc][S] if resident
+  float* z = reinterpret_cast<float*>(smem + q.z);     // [sc]
+  float* zb = z + q.sc;                                 // [sc] skip biases
+  float* red = reinterpret_cast<float*>(smem + q.red);  // [8 * NT]
+  const WT* post1 = static_cast<const WT*>(p.post1) + (long long)s0 * S;
+  if (tid == 0) {
+    for (int l = 0; l < L; ++l) mbar_init(&xbar[l], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = tid; j < sc; j += NT) zb[j] = p.skip_bias[s0 + j];
+  if (q.resident) {
+    const int n = sc * S / V;   // 16-byte chunks
+    for (int i = tid; i < n; i += NT)
+      reinterpret_cast<uint4*>(rows)[i] =
+          __ldg(reinterpret_cast<const uint4*>(post1) + i);
+  }
+  __syncthreads();
+  cluster_sync();   // every block's mbarriers are initialised
+  const WT* m1 = q.resident ? rows : post1;
+  // This thread's skip item: columns s0 + V c ... + V - 1, nr rows of each
+  // layer (h + i H, i < nr).
+  const int P = sc / V, H = NT / P, Hn = H < D ? H : D;
+  const int c = tid % P, h = tid / P;
+  const int nr = h < Hn ? (D - 1 - h) / H + 1 : 0;
+  const WT* col = static_cast<const WT*>(p.w_skip) + s0 + V * c;
+  uint4 w[SPLIT_ROWS];
+  auto load = [&](int l) {
+#pragma unroll
+    for (int i = 0; i < SPLIT_ROWS; ++i)
+      if (i < nr)
+        w[i] = __ldg(reinterpret_cast<const uint4*>(
+            col + (long long)(l * D + h + i * H) * S));
+  };
+  const uint32_t pbar = mapa(smem_addr(smem) + q.pbar, 0);
+  const uint32_t pdst =
+      mapa(smem_addr(smem + q.pbuf) + 4u * (rank - 1) * S, 0);
+  const int P2 = S / V, H2 = P2 < NT ? NT / P2 : 1;
+  const int per = (sc + H2 - 1) / H2;   // post1 rows of a row group
+  load(0);
+  for (int t = 0; t < p.T; ++t) {
+    const unsigned par = t & 1;
+    if (tid == 0)
+      for (int l = 0; l < L; ++l) mbar_expect_tx(&xbar[l], 4u * D);
+    const float* g = gbuf + par * L * D;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int l = 0; l < L; ++l) {
+      mbar_wait_cluster(&xbar[l], par);
+#pragma unroll
+      for (int i = 0; i < SPLIT_ROWS; ++i)
+        if (i < nr) fma_row<WT>(g[l * D + h + i * H], w[i], acc);
+      load(l + 1 < L ? l + 1 : 0);
+    }
+    if (nr > 0) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) red[h * sc + V * c + v] = acc[v];
+    }
+    __syncthreads();
+    // This peer's skip sums, skip_bias, relu, rounded: four threads a
+    // column, each adding every fourth row group in order, then the four
+    // sums pairwise (a whole warp takes eight columns).
+    for (int j4 = tid; j4 < 4 * sc; j4 += NT) {
+      const int j = j4 >> 2;
+      float v = 0.f;
+      for (int i = j4 & 3; i < Hn; i += 4) v += red[i * sc + j];
+      v += __shfl_xor_sync(FULL, v, 1);
+      v += __shfl_xor_sync(FULL, v, 2);
+      if ((j4 & 3) == 0) z[j] = rnd<WT>(fmaxf(v + zb[j], 0.f));
+    }
+    __syncthreads();
+    // Its rows of post1: item (c2, h2) takes columns V c2 ... over rows
+    // [h2 per, (h2 + 1) per) of its sc.
+    for (int it = tid; it < P2 * H2; it += NT) {
+      const int c2 = it % P2, h2 = it / P2;
+      const int j1 = min(sc, (h2 + 1) * per);
+      float a[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) a[v] = 0.f;
+#pragma unroll 4
+      for (int j = h2 * per; j < j1; ++j)
+        fma_row<WT>(z[j], *reinterpret_cast<const uint4*>(
+                              m1 + (long long)j * S + V * c2), a);
+#pragma unroll
+      for (int v = 0; v < V; ++v) red[h2 * S + V * c2 + v] = a[v];
+    }
+    __syncthreads();
+    // The partial, 16 bytes at a time, its row groups added as the skip
+    // sums' are, from four threads a chunk (whole warps: S rounded up).
+    for (int i4 = tid; i4 < ((S + 31) & ~31); i4 += NT) {
+      const int i = i4 >> 2;
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = i4 & 3; j < H2 && i4 < S; j += 4) {
+        const float4 r = reinterpret_cast<const float4*>(red + j * S)[i];
+        y.x += r.x; y.y += r.y; y.z += r.z; y.w += r.w;
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        y.x += __shfl_xor_sync(FULL, y.x, o);
+        y.y += __shfl_xor_sync(FULL, y.y, o);
+        y.z += __shfl_xor_sync(FULL, y.z, o);
+        y.w += __shfl_xor_sync(FULL, y.w, o);
+      }
+      if ((i4 & 3) == 0 && i4 < S) st_async4(pdst + 16u * i, y, pbar);
+    }
+  }
+  // No block leaves while a peer may still touch its shared memory.
+  cluster_sync();
+}
+
+// RF = FW: R = D = 32 with nslot<WT>() slots, one block a stream or, with
+// SPLIT, the split (a cluster of p.k blocks: this is block 0 of it, or
+// split_peer runs; an instance of its own, so the split's state takes no
+// register from the one-block instance's chain); RF = 0: the widths and
+// the slot count of Params.
+template <typename WT, int RF, bool SPLIT = false>
 __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr bool FIXED = RF != 0;
+  constexpr bool split = SPLIT;
+  static_assert(FIXED || !SPLIT, "the split is the R = D = 32 instance's");
   const int NSLOT = FIXED ? nslot<WT>() : p.nslot;
   const int R = FIXED ? RF : p.R, D = FIXED ? RF : p.D;
   const int DL = FIXED ? RF : p.Dlc;     // lc_proj's D
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int b = split ? blockIdx.x / p.k : blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int L = p.L, W = p.W, S = p.S, C = p.C;
+  Split sp{};
+  if constexpr (split) {
+    sp = split_plan(L, S, C, W, p.k, sizeof(WT));
+    const int rank = blockIdx.x % p.k;
+    if (rank > 0) {
+      split_peer<WT>(p, smem_raw, sp, rank);
+      return;
+    }
+  }
+  // Block 0's layout follows the area the split's blocks share.
+  unsigned char* const sm = smem_raw + (split ? sp.body : 0u);
+  uint64_t* pbar = reinterpret_cast<uint64_t*>(smem_raw + sp.pbar);
+  const float* pbuf = reinterpret_cast<const float*>(smem_raw + sp.pbuf);
+  float* b1s = reinterpret_cast<float*>(smem_raw + sp.b1s);
+  const uint32_t xbar_a = smem_addr(smem_raw), gbuf_a = xbar_a + sp.gbuf;
+  const int npeer = split ? p.k - 1 : 0;
   const int LD2 = L * 2 * D, TAP = 4 * R * D, RES = R * D;
   const WT* w_tap = static_cast<const WT*>(p.w_tap);
   const WT* w_res_t = static_cast<const WT*>(p.w_res_t);
@@ -915,11 +1193,11 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   const WT* post2_t = static_cast<const WT*>(p.post2_t);
 
   const Smem m = smem_layout(L, R, D, S, C, W, NSLOT, sizeof(WT));
-  WT* wring = reinterpret_cast<WT*>(smem_raw);  // [NSLOT][TAP + RES]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + m.bars);
+  WT* wring = reinterpret_cast<WT*>(sm);  // [NSLOT][TAP + RES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + m.bars);
   uint64_t* empty = full + NSLOT;
   uint64_t* ready = empty + NSLOT;   // [L] layer l's gated output stored
-  float* win = reinterpret_cast<float*>(smem_raw + m.f32s);  // [W]
+  float* win = reinterpret_cast<float*>(sm + m.f32s);  // [W]
   float* h = win + up4(W);           // [R]   f32 layer-0 input
   float* hr = h + R;                 // [R]   the chain's input, rounded
   float* olds = hr + R;              // [L*R] history rows h[t-d] (rounded)
@@ -930,7 +1208,7 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   float* logits = z1 + S;            // [C]
   float* bres = logits + up4(C);     // [L*R] residual biases
   float* part = bres + L * R;        // [8 * NT] partial sums
-  int* dil = reinterpret_cast<int*>(smem_raw + m.ints);  // [L]
+  int* dil = reinterpret_cast<int*>(sm + m.ints);  // [L]
   int* roff = dil + L;               // [L] ring offset of each layer
   int* cur = roff + L;               // [L] this step's ring row of each layer
 
@@ -940,15 +1218,19 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
       mbar_init(&empty[s], 1);
     }
     for (int l = 0; l < L; ++l) mbar_init(&ready[l], 32);
+    if (split) mbar_init(pbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < W; i += NT) win[i] = p.quantized ? -1.f : 0.f;
   for (int l = tid; l < L; l += NT) dil[l] = p.dil[l];
   for (int i = tid; i < L * R; i += NT) bres[i] = p.b_res[i];
+  if (split)
+    for (int s = tid; s < S; s += NT) b1s[s] = p.b1[s];
   // Padded gate channels take no lc term: their lc entries stay 0.
   if (DL != D)
     for (int i = tid; i < LD2; i += NT) lcs[i] = 0.f;
   __syncthreads();
+  if (split) cluster_sync();   // the peers' mbarriers are initialised
   if (tid == 0) {
     int o = 0;
     for (int l = 0; l < L; ++l) { roff[l] = o; o += dil[l] * R; }
@@ -978,6 +1260,7 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
   // This thread's index among the skip threads, or -1.
   const int skip_i = (warp > 1 && warp % 4 != 0)
                          ? (warp - warp / 4 - 2) * 32 + lane : -1;
+  const bool skips = skip_i >= 0 && !split;
 
   for (int t = 0; t < p.T; ++t) {
     // Teacher forcing: the window's newest column takes the seed sample.
@@ -1046,20 +1329,35 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
         issue_layer(wring, full, w_tap, w_res_t, ps, pl, TAP, RES);
         advance(ps, pph, pl, NSLOT, L);
       }
-    } else if (skip_i >= 0) {
+    } else if (split && warp == PUSHER) {
+      push_layers(gat, ready, t & 1, L, npeer,
+                  gbuf_a + 4u * (t & 1) * L * FW, xbar_a, lane);
+    } else if (skips) {
       skip_partial<WT>(gat, w_skip, ready, t & 1, L, D, S, part, skip_i,
                        lane);
     }
     __syncthreads();
 
-    // The skip product's row groups summed, plus bias, relu; post1, relu.
-    for (int s = tid; s < S; s += NT) {
-      float v = 0.f;
-      for (int j = 0; j < n_groups; ++j) v += part[j * S + s];
-      z[s] = rnd<WT>(fmaxf(v + p.skip_bias[s], 0.f));
+    if (split) {
+      // The peers' post1 partials, added in rank order, plus b1, relu.
+      if (tid == 0) mbar_expect_tx(pbar, 4u * npeer * S);
+      mbar_wait_cluster(pbar, t & 1);
+      for (int s = tid; s < S; s += NT) {
+        float v = pbuf[s];
+        for (int c = 1; c < npeer; ++c) v += pbuf[c * S + s];
+        z1[s] = rnd<WT>(fmaxf(v + b1s[s], 0.f));
+      }
+      __syncthreads();
+    } else {
+      // The skip product's row groups summed, plus bias, relu; post1, relu.
+      for (int s = tid; s < S; s += NT) {
+        float v = 0.f;
+        for (int j = 0; j < n_groups; ++j) v += part[j * S + s];
+        z[s] = rnd<WT>(fmaxf(v + p.skip_bias[s], 0.f));
+      }
+      __syncthreads();
+      dense_relu(z, post1, p.b1, S, S, z1, part, tid);
     }
-    __syncthreads();
-    dense_relu(z, post1, p.b1, S, S, z1, part, tid);
     // post2: one warp per output channel.
     for (int c = warp; c < C; c += NT / 32) {
       float acc = 0.f;
@@ -1086,6 +1384,8 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_kernel(Params p) {
     }
     __syncthreads();
   }
+  // No block leaves while a peer may still touch its shared memory.
+  if (split) cluster_sync();
 }
 
 // This thread's index among the skip threads (every warp but the chain
@@ -1304,32 +1604,54 @@ __global__ void __launch_bounds__(NT, 1) wavenet_gen_cluster_kernel(Params p) {
   cluster_sync();
 }
 
-// Launches the cluster instance: grid B*k, clusters of k blocks.  Returns
-// a CUDA error, or -1000 - n when the card holds only n < B such clusters
-// at once (a cluster's blocks must all be resident).
-template <typename WT>
-int launch_cluster(const Params& p, size_t smem, cudaStream_t stream) {
-  void (*kern)(Params) = wavenet_gen_cluster_kernel<WT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+// A launch of `kern` on B clusters of k blocks (grid B*k) with `smem`
+// bytes per block: the attribute set, the configuration filled in.
+struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.B * p.k);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+};
+inline cudaError_t cluster_config(ClusterLaunch& c, void (*kern)(Params),
+                                  int B, int k, size_t smem,
+                                  cudaStream_t stream) {
+  c.attr[0].id = cudaLaunchAttributeClusterDimension;
+  c.attr[0].val.clusterDim.x = k;
+  c.attr[0].val.clusterDim.y = 1;
+  c.attr[0].val.clusterDim.z = 1;
+  c.cfg = {};
+  c.cfg.gridDim = dim3(B * k);
+  c.cfg.blockDim = dim3(NT);
+  c.cfg.dynamicSmemBytes = smem;
+  c.cfg.stream = stream;
+  c.cfg.attrs = c.attr;
+  c.cfg.numAttrs = 1;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Clusters of k blocks of `kern` with `smem` bytes each that the card holds
+// at once, or -(CUDA error).
+inline int max_clusters(void (*kern)(Params), int k, size_t smem) {
+  ClusterLaunch c;
+  cudaError_t e = cluster_config(c, kern, 1, k, smem, 0);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &c.cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches `kern` (the cluster instance, or the split) on B clusters of
+// p.k blocks.  Returns a CUDA error, or -1000 - n when the card holds only
+// n < B such clusters at once (a cluster's blocks must all be resident).
+int launch_cluster(void (*kern)(Params), const Params& p, size_t smem,
+                   cudaStream_t stream) {
+  ClusterLaunch c;
+  cudaError_t e = cluster_config(c, kern, p.B, p.k, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &c.cfg);
   if (e != cudaSuccess) return (int)e;
   if (n < p.B) return -1000 - n;
-  e = cudaLaunchKernelEx(&cfg, kern, p);
+  e = cudaLaunchKernelEx(&c.cfg, kern, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1344,26 +1666,48 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// wn_moon's widths with the full ring take the R = D = 32 instance; a
-// stream split over k > 1 blocks the cluster instance.
+// wn_moon's widths with the full ring take the R = D = 32 instance, on
+// one block a stream or, with k > 1, split over a cluster; other widths
+// split over k > 1 blocks the cluster instance.
 template <typename WT>
 int launch_widths(Params p, cudaStream_t stream) {
   const int wsize = (int)sizeof(WT);
+  if (fixed_widths(p.L, p.R, p.Dlc, p.S, p.C, p.W, wsize)) {
+    p.nslot = nslot<WT>();
+    if (p.k > 1) {
+      const Split q = split_plan(p.L, p.S, p.C, p.W, p.k, wsize);
+      if (!q.ok) return (int)cudaErrorInvalidValue;
+      return launch_cluster(wavenet_gen_kernel<WT, FW, true>, p, q.total,
+                            stream);
+    }
+    return launch<WT, FW>(
+        p, smem_layout(p.L, FW, FW, p.S, p.C, p.W, p.nslot, wsize).total,
+        stream);
+  }
   if (p.k > 1) {
     const int Dl = p.D / p.k;
     p.nslot = fit_slots(p.L, p.R, Dl, p.S, p.C, p.W, wsize, p.k);
     if (p.nslot < 1) return (int)cudaErrorInvalidValue;
-    return launch_cluster<WT>(
-        p, smem_layout(p.L, p.R, Dl, p.S, p.C, p.W, p.nslot, wsize, p.k).total,
+    return launch_cluster(
+        wavenet_gen_cluster_kernel<WT>, p,
+        smem_layout(p.L, p.R, Dl, p.S, p.C, p.W, p.nslot, wsize, p.k).total,
         stream);
   }
   p.nslot = fit_slots(p.L, p.R, p.D, p.S, p.C, p.W, wsize);
   if (p.nslot < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      smem_layout(p.L, p.R, p.D, p.S, p.C, p.W, p.nslot, wsize).total;
-  if (p.R == FW && p.D == FW && p.Dlc == FW && p.nslot == nslot<WT>())
-    return launch<WT, FW>(p, smem, stream);
-  return launch<WT, 0>(p, smem, stream);
+  return launch<WT, 0>(
+      p, smem_layout(p.L, p.R, p.D, p.S, p.C, p.W, p.nslot, wsize).total,
+      stream);
+}
+
+// The split's clusters of k blocks the card holds at once at these
+// (padded) widths, or -(CUDA error).
+inline int split_clusters(int L, int S, int C, int W, int k, int wsize) {
+  const size_t smem = split_plan(L, S, C, W, k, wsize).total;
+  return wsize == 2
+             ? max_clusters(wavenet_gen_kernel<__nv_bfloat16, FW, true>, k,
+                            smem)
+             : max_clusters(wavenet_gen_kernel<float, FW, true>, k, smem);
 }
 
 }  // namespace
@@ -1388,13 +1732,33 @@ extern "C" int wavenet_gen_slots(int L, int R, int D, int S, int C, int W,
   return fit_slots(L, pad8(R), pad8(D), pad8(S), C, W, bf16 ? 2 : 4);
 }
 
-// The plan at the caller's widths (as wavenet_gen_smem_bytes takes them):
-// the fewest blocks per stream, 1, 2, 4 or 8, whose per-block layout fits
-// (*blocks), that layout's weight slots (*slots, 0 when not even 8 blocks
-// with one slot fit), and its shared memory bytes per block (returned).
+// The plan at the caller's widths (as wavenet_gen_smem_bytes takes them)
+// for B streams: at the R = D = 32 instance's widths, SPLIT_SIZE blocks
+// when the split layout fits them and the card holds B such clusters at
+// once, else one block; at other widths the fewest blocks per
+// stream, 1, 2, 4 or 8, whose per-block layout fits.  *blocks, that
+// layout's weight slots (*slots, 0 when not even 8 blocks with one slot
+// fit), and its shared memory bytes per block (returned).
 extern "C" int wavenet_gen_plan(int L, int R, int D, int S, int C, int W,
-                                int bf16, int* blocks, int* slots) {
-  return plan(L, R, D, S, C, W, bf16 ? 2 : 4, blocks, slots);
+                                int bf16, int B, int* blocks, int* slots) {
+  const int wsize = bf16 ? 2 : 4;
+  if (!fixed_widths(L, pad8(R), D, pad8(S), C, W, wsize))
+    return plan(L, R, D, S, C, W, wsize, blocks, slots);
+  *slots = max_slots(wsize);
+  const Split q = split_plan(L, pad8(S), C, W, SPLIT_SIZE, wsize);
+  if (q.ok && split_clusters(L, pad8(S), C, W, SPLIT_SIZE, wsize) >= B) {
+    *blocks = SPLIT_SIZE;
+    return (int)q.total;
+  }
+  *blocks = 1;
+  return (int)smem_layout(L, FW, FW, pad8(S), C, W, *slots, wsize).total;
+}
+
+// The split's clusters of k blocks the card holds at once at the caller's
+// widths (the R = D = 32 instance's), or -(CUDA error).
+extern "C" int wavenet_gen_split_clusters(int L, int S, int C, int W, int k,
+                                          int bf16) {
+  return split_clusters(L, pad8(S), C, W, k, bf16 ? 2 : 4);
 }
 
 // Launches the sampler on `stream` and returns cudaGetLastError() (0 when
@@ -1403,11 +1767,13 @@ extern "C" int wavenet_gen_plan(int L, int R, int D, int S, int C, int W,
 // widths: lc_proj is [B, T, L*2D], every other tensor is in the layout of
 // R and S padded to multiples of 8 and D to a multiple of 8 * blocks
 // (ops/wavenet_gen.py:kernel_layout; with blocks > 1 w_res_t and w_skip
-// split per block, cluster_layout).  `front` is [R, W] for scalar input
-// and [W, C, R] for the softmax head (quantized != 0); `bf16` selects
-// __nv_bfloat16 weights; `blocks` (1, 2, 4 or 8) is the blocks per stream,
-// and the ring scratch holds that many copies per stream.  The wrapper
-// checks shapes, types and devices before calling.
+// split per block, cluster_layout; the split keeps kernel_layout's).
+// `front` is [R, W] for scalar input and [W, C, R] for the softmax head
+// (quantized != 0); `bf16` selects __nv_bfloat16 weights; `blocks` is the
+// blocks per stream (the split's 2 ... 8 at the R = D = 32 instance's
+// widths, else 1, 2, 4 or 8), and the ring scratch holds that many copies
+// per stream (one for the split).  The wrapper checks shapes, types and
+// devices before calling.
 extern "C" int wavenet_gen_launch(
     const float* lc_proj, const void* w_tap, const void* w_res_t,
     const float* b_res, const void* front, const void* w_skip,
@@ -1422,15 +1788,21 @@ extern "C" int wavenet_gen_launch(
   // The bulk copies read 16-byte aligned spans.
   const bool misaligned =
       (reinterpret_cast<uintptr_t>(w_tap) | reinterpret_cast<uintptr_t>(w_res_t)) & 15;
-  const bool bad_blocks = blocks != 1 && blocks != 2 && blocks != 4 &&
-                          blocks != MAX_CLUSTER;
+  const int wsize = bf16 ? 2 : 4;
+  const bool split =
+      blocks > 1 && fixed_widths(L, pad8(R), D, pad8(S), C, W, wsize);
+  const bool bad_blocks =
+      split ? !split_plan(L, pad8(S), C, W, blocks, wsize).ok
+            : blocks != 1 && blocks != 2 && blocks != 4 &&
+                  blocks != MAX_CLUSTER;
   if (B < 1 || T < 1 || L < 1 || R < 1 || D < 1 || W < 1 || S < 1 ||
       pad8(S) > MAX_S || bad_head || misaligned || bad_blocks ||
       (prime_len > 0 && primed == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{lc_proj, w_tap, w_res_t, b_res, front, w_skip, skip_bias,
            post1, b1, post2_t, b2, dil, primed, noise, ring, out,
-           seed, ring_stride, B, T, L, pad8(R), pad_split(D, blocks), D, W,
+           seed, ring_stride, B, T, L, pad8(R),
+           split ? FW : pad_split(D, blocks), D, W,
            pad8(S), C, prime_len, deterministic, quantized, 0, temperature,
            blocks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

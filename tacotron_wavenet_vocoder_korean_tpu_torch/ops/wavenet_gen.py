@@ -9,8 +9,10 @@ heads (mixture of logistics for scalar input, Q-way softmax for
 ``mulaw-quantize``) and both weight types (f32, bf16), at any width whose
 layout fits a block's shared memory or, with each stream's gate channels
 split over a thread-block cluster of up to 8 blocks, the cluster's
-(``kernel_plan``, ``kernel_limits_error``); it computes the same function
-on an unfused packed layout of its own:
+(``kernel_plan``, ``kernel_limits_error``); at R = D = 32 (wn_moon's
+widths) each stream's skip product and post1 leave the chain's block for
+the peers of a cluster when the card holds B such clusters (the split).  It
+computes the same function on an unfused packed layout of its own:
 
   w_tap     [L, 2D, 2R]  row 2j+f (f=0 filter, 1 gate) of channel j over
                          [old tap (h[t-d]) | current tap (h[t])]
@@ -36,9 +38,10 @@ as the Pallas kernel does.
 
 The kernel reads this layout with R, D and S zero-padded to multiples of 8
 (``kernel_layout``, made by the wrapper; the lc projection keeps the
-caller's D).  Split over k > 1 blocks, D is padded to a multiple of 8k and
-``w_res_t`` and ``w_skip`` are repacked so that each block's share is
-contiguous (``cluster_layout``).  ``pack_params``, the twin and
+caller's D).  With the gate channels split over k > 1 blocks, D is padded
+to a multiple of 8k and ``w_res_t`` and ``w_skip`` are repacked so that
+each block's share is contiguous (``cluster_layout``); the split reads
+``kernel_layout``'s.  ``pack_params``, the twin and
 ``generate_flops`` / ``generate_bytes`` keep the caller's widths.
 """
 from __future__ import annotations
@@ -46,7 +49,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -72,6 +75,11 @@ _MAX_SKIP = 8 * _THREADS      # the kernel's partial sums: S <= 4096
 _MAX_SLOTS = {torch.bfloat16: 8, torch.float32: 4}
 # Blocks per stream: one, or a thread-block cluster (8 is the portable most).
 CLUSTER_SIZES = (1, 2, 4, 8)
+# The split's blocks per stream at R = D = 32: the fastest of 2 to 8 on an
+# H100 at B = 1 and 8 (PERF.md); the card holds 15 such clusters.
+SPLIT_SIZE = 8
+_SPLIT_ROWS = 8      # a peer thread's skip rows of one layer, at most
+_FW = 32             # R = D of the kernel's unrolled instance
 
 
 def pack_params(cfg: WaveNetConfig, params: Params,
@@ -148,15 +156,23 @@ def kernel_widths(packed: Packed) -> Tuple[int, int, int, int, int, int]:
 
 def kernel_variant(packed: Packed, blocks: Optional[int] = None) -> str:
     """The kernel variant a packed layout runs: its head and weight type,
-    e.g. ``"softmax-bfloat16"``, and ``-cluster`` when its stream is split
-    over ``blocks`` > 1 blocks (by default ``kernel_plan``'s)."""
+    e.g. ``"softmax-bfloat16"``, and, when its stream runs on ``blocks`` > 1
+    blocks (by default the plan's for one stream: on a CUDA layout, for the
+    clusters this card holds, as ``wavenet_generate`` launches it; else for
+    a card that holds them), ``-split`` at the R = D = 32 instance's widths
+    (the skip product and post1 on the peers) or ``-cluster`` (the gate
+    channels split)."""
     head = "softmax" if "front_oh" in packed else "mol"
     dtype = packed["w_tap"].dtype
+    widths = kernel_widths(packed)
     if blocks is None:
-        blocks = (kernel_plan(*kernel_widths(packed), dtype)[0]
+        blocks = (_plan_blocks(*widths, dtype, 1, packed["w_tap"].is_cuda)
                   if dtype in WEIGHT_DTYPES else 1)
     name = f"{head}-{str(dtype).replace('torch.', '')}"
-    return name if blocks == 1 else f"{name}-cluster"
+    if blocks == 1:
+        return name
+    split = dtype in WEIGHT_DTYPES and _fixed(*widths, dtype)
+    return f"{name}-split" if split else f"{name}-cluster"
 
 
 def precompute_lc_proj(packed: Packed, lc: torch.Tensor,
@@ -326,17 +342,72 @@ def kernel_smem(L: int, R: int, D: int, S: int, C: int, W: int,
     return _block_smem(L, R, D, S, C, W, 1, weight_dtype)
 
 
+def _fixed(L: int, R: int, D: int, S: int, C: int, W: int,
+           weight_dtype: torch.dtype) -> bool:
+    """Whether the caller's widths take the kernel's R = D = 32 instance:
+    R padded to 32, D = 32 and the full weight ring in one block."""
+    return (_pad(R) == _FW and D == _FW
+            and kernel_smem(L, R, D, S, C, W, weight_dtype)[1]
+            == _MAX_SLOTS[weight_dtype])
+
+
+def _split_smem(L: int, S: int, C: int, W: int, blocks: int,
+                weight_dtype: torch.dtype) -> int:
+    """Shared memory bytes per block of the split on ``blocks`` blocks per
+    stream at R = D = 32 (``split_plan`` of ``csrc/wavenet_gen.cu``), or 0
+    when it does not take them.  Every block lays out alike the area they
+    share: the peers' layer mbarriers, block 0's partials mbarrier, the
+    peers' gated values [2][L*32], block 0's partial sums [k-1][S] and b1
+    [S]; then block 0 has the one-block layout, and a peer its rows of
+    post1 [sc][S] (when they fit), its skip sums and skip biases [2][sc]
+    and its row groups' sums [8 * 512]; sc is S's chunks of 8 dealt over
+    the k - 1 peers.  The split takes ``blocks`` when each peer gets a
+    chunk, a peer thread's rows of a layer fit ``_SPLIT_ROWS`` and the
+    bytes fit a block."""
+    S = _pad(S)
+    wsize = torch.finfo(weight_dtype).bits // 8
+    k = blocks
+    if not 2 <= k <= CLUSTER_SIZES[-1] or S // 8 < k - 1:
+        return 0
+    body = _pad(_pad(8 * L + 8, 16) + 8 * L * _FW + 4 * k * S, 128)
+    first = body + _smem_total(L, _FW, _FW, S, C, W,
+                               _MAX_SLOTS[weight_dtype], wsize)
+    sc = 8 * -(-(S // 8) // (k - 1))
+    if _FW * (sc * wsize // 16) > _SPLIT_ROWS * _THREADS:
+        return 0
+    for resident in (True, False):
+        peer = body + resident * sc * S * wsize + 8 * sc + 32 * _THREADS
+        total = max(first, peer)
+        if total <= SMEM_LIMIT:
+            return total
+    return 0
+
+
 def kernel_plan(L: int, R: int, D: int, S: int, C: int, W: int,
-                weight_dtype: torch.dtype) -> Tuple[int, int, int]:
+                weight_dtype: torch.dtype, B: int = 1,
+                clusters: Optional[Callable[[int], int]] = None
+                ) -> Tuple[int, int, int]:
     """(blocks per stream, weight slots, shared memory bytes per block) the
-    kernel runs the caller's widths with, as ``wavenet_gen_plan`` of
-    ``csrc/wavenet_gen.cu`` computes it: one block whenever its layout fits
-    (with ``kernel_smem``'s slots and bytes); else, of the cluster sizes 2,
-    4 and 8 whose per-block layout fits, the fewest that leave each chain
-    lane at most one gate channel (D/k <= 32), or the fewest when none does
-    (R = D = 128 at 50 layers: 4 blocks in either weight type, though 2
-    fit in bf16; see PERF.md); (8, 0, bytes at 8 blocks with one slot)
-    when none fits."""
+    kernel runs B streams of the caller's widths with, as
+    ``wavenet_gen_plan`` of ``csrc/wavenet_gen.cu`` computes it.  At the
+    R = D = 32 instance's widths (``_fixed``): ``SPLIT_SIZE`` blocks when
+    the split takes them and the card holds B such clusters at once
+    (``clusters(k)``: how many clusters of k blocks of the split it holds;
+    None: as many as asked), with the split's bytes; else one block
+    (``kernel_smem``'s slots and bytes).  Other widths: one block
+    whenever its layout fits; else, of the cluster sizes 2, 4 and 8 whose
+    per-block layout fits, the fewest that leave each chain lane at most
+    one gate channel (D/k <= 32), or the fewest when none does (R = D =
+    128 at 50 layers: 4 blocks in either weight type, though 2 fit in
+    bf16; see PERF.md); (8, 0, bytes at 8 blocks with one slot) when none
+    fits."""
+    if _fixed(L, R, D, S, C, W, weight_dtype):
+        nbytes, slots = kernel_smem(L, R, D, S, C, W, weight_dtype)
+        k = SPLIT_SIZE
+        split = _split_smem(L, S, C, W, k, weight_dtype)
+        if split and (clusters is None or clusters(k) >= B):
+            return k, slots, split
+        return 1, slots, nbytes
     fits = []
     for blocks in CLUSTER_SIZES:
         nbytes, slots = _block_smem(L, R, D, S, C, W, blocks, weight_dtype)
@@ -467,6 +538,32 @@ _PACKED_ORDER = ("w_tap", "w_res_t", "b_res", "front", "w_skip",
 
 
 @functools.cache
+def _card_clusters(L: int, S: int, C: int, W: int, blocks: int,
+                   bf16: bool) -> int:
+    """How many clusters of ``blocks`` blocks of the split the card holds at
+    once at these widths (``wavenet_gen_split_clusters``)."""
+    fn = load_library("wavenet_gen").wavenet_gen_split_clusters
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    n = fn(L, S, C, W, blocks, int(bf16))
+    if n < 0:
+        raise RuntimeError(f"wavenet_gen cluster query failed: CUDA error "
+                           f"{-n}")
+    return n
+
+
+def _plan_blocks(L: int, R: int, D: int, S: int, C: int, W: int,
+                 weight_dtype: torch.dtype, B: int, card: bool) -> int:
+    """``kernel_plan``'s blocks per stream for B streams: given the clusters
+    this card holds (``_card_clusters``) when ``card``, else as for a card
+    that holds them."""
+    held = (lambda k: _card_clusters(L, S, C, W, k,
+                                     weight_dtype == torch.bfloat16))
+    return kernel_plan(L, R, D, S, C, W, weight_dtype, B,
+                       held if card else None)[0]
+
+
+@functools.cache
 def _launcher():
     """The kernel's C entry point, built and bound on first use."""
     fn = load_library("wavenet_gen").wavenet_gen_launch
@@ -500,9 +597,10 @@ def wavenet_generate(packed: Packed, lc_proj: torch.Tensor,
     """Generate [B, T] samples (class ids for the softmax head) for
     ``lc_proj [B, T, L*2D]``.
 
-    On a CUDA tensor this launches ``csrc/wavenet_gen.cu`` (one block per
-    stream on ``kernel_layout(packed)``, or a cluster of ``kernel_plan``'s
-    blocks per stream on ``cluster_layout``) and counts the launch in
+    On a CUDA tensor this launches ``csrc/wavenet_gen.cu`` (``kernel_plan``
+    for B streams on this card: one block per stream or the split on
+    ``kernel_layout(packed)``, or a cluster per stream on
+    ``cluster_layout``) and counts the launch in
     ``wavenet_generate.launches`` and, by ``kernel_variant``, in
     ``wavenet_generate.variant_launches``; widths the kernel does not take,
     and a launch the card refuses, raise.  On a CPU tensor it runs
@@ -524,7 +622,8 @@ def _generate(packed: Packed, lc_proj: torch.Tensor,
               prime_len: int = 0, temperature: float = 1.0,
               blocks: Optional[int] = None) -> torch.Tensor:
     """``wavenet_generate``, with ``blocks`` forcing the blocks per stream
-    on the card (1, 2, 4 or 8, for timing; ``kernel_plan``'s by default)."""
+    on the card (1, 2, 4 or 8; 2 to 8 for the split; for timing and tests,
+    ``kernel_plan``'s by default)."""
     quantized = "front_oh" in packed
     if not deterministic and noise is None and generator is None:
         raise ValueError("stochastic generation needs a generator or noise")
@@ -560,12 +659,15 @@ def _generate(packed: Packed, lc_proj: torch.Tensor,
     error = _limits_error(L, R, D, W, S, C, quantized, wdt)
     if error is not None:
         raise ValueError(error)
+    fixed = _fixed(L, R, D, S, C, W, wdt)
     if blocks is None:
-        blocks = kernel_plan(L, R, D, S, C, W, wdt)[0]
-    elif blocks not in CLUSTER_SIZES or not _block_smem(
-            L, R, D, S, C, W, blocks, wdt)[1]:
+        blocks = _plan_blocks(L, R, D, S, C, W, wdt, B, True)
+    elif not (_split_smem(L, S, C, W, blocks, wdt) if fixed and blocks > 1
+              else blocks in CLUSTER_SIZES
+              and _block_smem(L, R, D, S, C, W, blocks, wdt)[1]):
         raise ValueError(f"{blocks} blocks per stream do not take L={L}, "
                          f"R={R}, D={D}, S={S}")
+    split = fixed and blocks > 1
     profiling.annotate(blocks=blocks, variant=kernel_variant(packed, blocks))
     if LD2 != L * two_d:
         raise ValueError(f"lc_proj {tuple(lc_proj.shape)} does not match "
@@ -574,7 +676,8 @@ def _generate(packed: Packed, lc_proj: torch.Tensor,
         raise ValueError(f"prime_len={prime_len} outside [0, {T}]")
     f32 = torch.float32
     _check("lc_proj", lc_proj, f32, dev)
-    padded = cluster_layout(packed, blocks)
+    padded = kernel_layout(packed) if split else cluster_layout(packed,
+                                                                blocks)
     args = dict(padded, front=padded["front_oh" if quantized else "front_t"])
     for k in _PACKED_ORDER:
         _check(k, args[k], wdt if k in WEIGHTS + ("front",) else f32, dev,
@@ -587,7 +690,8 @@ def _generate(packed: Packed, lc_proj: torch.Tensor,
 
     dil = packed["dilations"]
     ring_stride = int(dil.sum().item()) * _pad(R)
-    ring = torch.zeros(B, blocks, ring_stride, dtype=f32, device=dev)
+    ring = torch.zeros(B, 1 if split else blocks, ring_stride, dtype=f32,
+                       device=dev)
     out = torch.empty(B, T, dtype=f32, device=dev)
     seed = 0
     if not deterministic and noise is None:
